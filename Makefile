@@ -1,7 +1,7 @@
 CXX ?= g++
 CXXFLAGS ?= -O3 -march=native -fPIC -shared -fopenmp -std=c++17
 
-.PHONY: all test quick examples tpu-test
+.PHONY: all test quick examples gpu-test
 
 all: orphics_tpu/csrc/liborphics_healpix.so
 
@@ -17,8 +17,8 @@ quick:
 examples:
 	python -m pytest tests/test_examples_smoke.py -q
 
-tpu-test:
-	ORPHICS_TPU_TESTS=1 python -m pytest tests/ -m tpu -q
+gpu-test:
+	JAX_PLATFORMS=cuda,cpu python -m pytest tests/ -m gpu -q
 
 clean:
 	rm -f orphics_tpu/csrc/*.so

@@ -12,10 +12,6 @@ import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(
     _os.path.abspath(__file__))))
 
-import os as _os_g
-if _os_g.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax as _jax_g
-    _jax_g.config.update("jax_platforms", "cpu")
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -26,7 +22,7 @@ from orphics_tpu.models import theory, grf, qe as qemod
 from orphics_tpu.ops import fourier as F
 from orphics_tpu.ops.binning import Bin2D
 
-_QUICK = _os_g.environ.get("ORPHICS_TPU_EXAMPLE_QUICK") == "1"
+_QUICK = _os.environ.get("ORPHICS_TPU_EXAMPLE_QUICK") == "1"
 nsims = 8 if _QUICK else 32
 geom = rect_geometry(width_arcmin=128 * 3.0, px_res_arcmin=3.0)
 th = theory.default_theory()

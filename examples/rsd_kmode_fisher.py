@@ -12,10 +12,6 @@ import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(
     _os.path.abspath(__file__))))  # run from anywhere
 
-import os as _os_g
-if _os_g.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax as _jax_g
-    _jax_g.config.update("jax_platforms", "cpu")
 import numpy as np
 
 from orphics_tpu.models import rsd

@@ -1,6 +1,6 @@
-"""orphics_tpu — a TPU-native flat-sky CMB analysis framework.
+"""orphics_tpu — a JAX flat-sky and curved-sky CMB analysis framework.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+A ground-up JAX/XLA re-design of the capabilities of
 ``msyriac/orphics``: Gaussian-random-field CMB simulation, FFT power
 spectra with radial binning, CMB lensing (sims, NFW profiles, quadratic
 estimators, N_L^0), pixel-pixel covariance inpainting, ILC, foreground

@@ -1,6 +1,6 @@
 """Flat-sky map geometry as pure data.
 
-TPU-native replacement for the ``(shape, wcs)`` pairs + ``pixell.enmap``
+JAX replacement for the ``(shape, wcs)`` pairs + ``pixell.enmap``
 geometry calculus that the reference builds on (see reference
 ``orphics/maps.py:1472`` ``rect_geometry`` and the enmap methods
 ``modlmap/lmap/posmap/modrmap/pixsizemap`` used throughout).

@@ -1,6 +1,6 @@
 """Facade mirroring the reference's ``orphics.maps`` public API.
 
-Thin, reference-shaped wrappers over the TPU-native implementations in
+Thin, reference-shaped wrappers over the JAX implementations in
 ``orphics_tpu.ops`` / ``orphics_tpu.models``. Users of the reference
 (``orphics/maps.py``) should find the same names here; functions take a
 :class:`~orphics_tpu.geometry.Geometry` instead of ``(shape, wcs)`` and JAX

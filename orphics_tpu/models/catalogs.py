@@ -502,7 +502,7 @@ def reconstruct_velocities(ras, decs, zs, ras_rand, decs_rand, zs_rand,
                            nmesh=128, smoothing_radius=10.0, cc=None):
     """Line-of-sight velocity reconstruction at the galaxy positions.
 
-    TPU-native first-order (Zeldovich) replacement for the reference's
+    JAX first-order (Zeldovich) replacement for the reference's
     pyrecon ``MultiGridReconstruction`` path: paint galaxies and randoms
     to a CIC mesh, smooth, and solve v(k) = i a H f delta(k) k / (b k^2)
     with FFTs, then trilinearly sample the LOS component at the galaxy

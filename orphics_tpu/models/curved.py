@@ -1,6 +1,6 @@
 """Curved-sky map operations built on the native SHT (``ops/sht.py``).
 
-TPU-native replacements for the reference's ``pixell.curvedsky`` /
+JAX replacements for the reference's ``pixell.curvedsky`` /
 ``healpy`` call sites:
 
 * ``rand_map`` / ``rand_cmb_sim``   (reference ``orphics/maps.py:716,1052``)
@@ -13,8 +13,8 @@ TPU-native replacements for the reference's ``pixell.curvedsky`` /
   (``maps.py:1681,1738``) and analytic ``galactic_mask`` (``maps.py:1186``)
 
 All sphere fields live on :class:`orphics_tpu.ops.sht.RingGeom` grids
-(iso-latitude rings, dense ``(ntheta, nphi)`` arrays) — the cylindrical
-layout that tiles onto TPU registers; alms use healpy packing.
+(iso-latitude rings, dense ``(ntheta, nphi)`` arrays); alms use healpy
+packing.
 """
 from __future__ import annotations
 
@@ -87,8 +87,7 @@ def rand_map(key, rings: RingGeom, ps, lmax: int, pol: bool = None,
     components are ordered T, E, B (pol synthesis via spin-2).
     Returns ``(ntheta, nphi)`` or ``(3, ntheta, nphi)``; with
     ``nsims`` an ensemble with a leading sims dim — the batched alm
-    stacks ride the packed Pallas Legendre kernels on accelerator
-    backends (several maps per l-recurrence).
+    stacks share one l-recurrence.
     """
     ps = jnp.asarray(ps)
     if pol is not None and bool(pol) != (ps.ndim == 3 and ps.shape[0] == 3):

@@ -10,10 +10,9 @@ transforms via the divergence identity
 
     div(Tbar grad W) = [ Lap(Tbar W) + Tbar Lap(W) - W Lap(Tbar) ] / 2
 
-(exact on S^2), so the hot path rides the folded Pallas Legendre
-kernels with no odd-spin transform needed — a TPU-first formulation:
-4 batched syntheses + 3 analyses + pointwise map products per
-reconstruction, all fusable under one jit.
+(exact on S^2), so the hot path rides the scalar Legendre transforms
+with no odd-spin transform needed: 4 batched syntheses + 3 analyses +
+pointwise map products per reconstruction, all fusable under one jit.
 
 Estimator (phi convention):
 
@@ -176,7 +175,7 @@ def _interp_fl(Ls, vals, lmax):
     return out
 
 
-def qtt_bar(talm, rings, lmax, fl, wl, fast=False):
+def qtt_bar(talm, rings, lmax, fl, wl):
     """UNNORMALIZED TT estimator gbar_LM (phi convention, see module
     docstring). ``fl``/``wl`` are the (lmax+1) leg filters (typically
     1/Ctot and Cl/Ctot; zeros where excluded). Scalar SHTs only."""
@@ -190,17 +189,16 @@ def qtt_bar(talm, rings, lmax, fl, wl, fast=False):
     # one packed synthesis: [Tbar, W, Lap Tbar, Lap W]
     alms = jnp.stack([tbar, walm, almops.almxfl(tbar, lap),
                       almops.almxfl(walm, lap)])
-    m = sht.alm2map(alms, rings, lmax, fast=fast)
+    m = sht.alm2map(alms, rings, lmax)
     prods = jnp.stack([m[0] * m[1],          # Tbar W
                        m[0] * m[3],          # Tbar LapW
                        m[1] * m[2]])         # W LapTbar
-    p = sht.map2alm(prods, rings, lmax, fast=fast)
+    p = sht.map2alm(prods, rings, lmax)
     llp1 = jnp.asarray(ls * (ls + 1.0), talm.real.dtype)
     return 0.5 * (almops.almxfl(p[0], llp1) + p[1] - p[2])
 
 
-def qtt(talm, rings, lmax, cl, ctot, lmin=2, Ls=None, norm="phi",
-        fast=False):
+def qtt(talm, rings, lmax, cl, ctot, lmin=2, Ls=None, norm="phi"):
     """Normalized full-sky TT lensing reconstruction.
 
     Parameters
@@ -227,7 +225,7 @@ def qtt(talm, rings, lmax, cl, ctot, lmin=2, Ls=None, norm="phi",
     rinv = np.zeros(Ls.size)
     rinv[good] = 1.0 / R[good]
     rinv_dense = _interp_fl(Ls, rinv, lmax)
-    gbar = qtt_bar(talm, rings, lmax, F, wl, fast=fast)
+    gbar = qtt_bar(talm, rings, lmax, F, wl)
     phi = almops.almxfl(gbar, jnp.asarray(rinv_dense, gbar.real.dtype))
     if norm == "kappa":
         kfac = ls * (ls + 1.0) / 2.0
@@ -237,7 +235,7 @@ def qtt(talm, rings, lmax, cl, ctot, lmin=2, Ls=None, norm="phi",
     return phi, (Ls, n0)
 
 
-def grad_dot(a_alm, b_alm, rings, lmax, fast=False):
+def grad_dot(a_alm, b_alm, rings, lmax):
     """grad(a) . grad(b) of two scalar fields as alms, via the same
     scalar identity the estimator uses: (Lap(ab) - a Lap b - b Lap a)/2.
     Exposed because it is also the exact first-order lensing delta:
@@ -249,9 +247,9 @@ def grad_dot(a_alm, b_alm, rings, lmax, fast=False):
     lap = jnp.asarray(-ls * (ls + 1.0), a_alm.real.dtype)
     alms = jnp.stack([a_alm, b_alm, almops.almxfl(a_alm, lap),
                       almops.almxfl(b_alm, lap)])
-    m = sht.alm2map(alms, rings, lmax, fast=fast)
+    m = sht.alm2map(alms, rings, lmax)
     prods = jnp.stack([m[0] * m[1], m[0] * m[3], m[1] * m[2]])
-    p = sht.map2alm(prods, rings, lmax, fast=fast)
+    p = sht.map2alm(prods, rings, lmax)
     llp1 = jnp.asarray(ls * (ls + 1.0), a_alm.real.dtype)
     return 0.5 * (almops.almxfl(p[0], llp1) + p[1] + p[2]) \
         - 0.0 * p[0] if False else \
@@ -286,14 +284,13 @@ class CurvedQE:
         rinv[good] = 1.0 / self.R[good]
         self._rinv_dense = _interp_fl(self.Ls, rinv, lmax)
 
-    def phi_from_alm(self, talm, fast=False):
-        gbar = qtt_bar(talm, self.rings, self.lmax, self.fl, self.wl,
-                       fast=fast)
+    def phi_from_alm(self, talm):
+        gbar = qtt_bar(talm, self.rings, self.lmax, self.fl, self.wl)
         return almops.almxfl(
             gbar, jnp.asarray(self._rinv_dense, gbar.real.dtype))
 
-    def kappa_from_alm(self, talm, fast=False):
-        phi = self.phi_from_alm(talm, fast=fast)
+    def kappa_from_alm(self, talm):
+        phi = self.phi_from_alm(talm)
         ls = np.arange(self.lmax + 1, dtype=np.float64)
         return almops.almxfl(
             phi, jnp.asarray(ls * (ls + 1.0) / 2.0, phi.real.dtype))

@@ -1,6 +1,6 @@
 """Gaussian random field synthesis from theory spectra.
 
-TPU-native replacement for reference ``MapGen`` (``orphics/maps.py:1553``),
+JAX replacement for reference ``MapGen`` (``orphics/maps.py:1553``),
 which chains ``enmap.spec2flat`` (1D Cl -> 2D covsqrt), complex white noise
 (``enmap.rand_gauss_harm``), a per-Fourier-pixel matrix multiply
 (``enmap.map_mul``) and a unitary inverse FFT (``enmap.harm2map``).
@@ -168,7 +168,7 @@ def rand_hermitian_half(key, geom: Geometry, dtype=jnp.float32):
 @partial(jax.jit, static_argnames=("geom", "dtype"))
 def rand_map_r(key, geom: Geometry, covsqrt_h, dtype=jnp.float32):
     """Scalar GRF via the half-plane irfft route — statistically identical
-    to :func:`rand_map` at ~half the FFT and RNG cost (the TPU fast path).
+    to :func:`rand_map` at ~half the FFT and RNG cost (the fast path).
     """
     eta = rand_hermitian_half(key, geom, dtype)
     return F.irfft2(covsqrt_h * eta, geom, "raw")

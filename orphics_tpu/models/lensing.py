@@ -1,7 +1,7 @@
 """Flat-sky CMB lensing: kappa/phi/deflection calculus, map lensing
 operators, lensed simulations, and NFW halo profiles.
 
-TPU-native re-design of reference ``orphics/lensing.py``:
+JAX re-design of reference ``orphics/lensing.py``:
   * ``kappa_to_phi/fkappa_to_fphi`` (reference ``lensing.py:651-665``):
     phi(l) = 2 kappa(l) / (l (l+1)), zeroed below l=2.
   * ``alpha_from_kappa`` (``lensing.py:443``): deflection = grad(phi) via
@@ -89,12 +89,47 @@ def alpha_from_kappa(kappa, geom: Geometry):
 # ------------------------------------------------------------------
 # Spline-interpolated displacement (displace_map equivalent)
 # ------------------------------------------------------------------
-# The B-spline basis/prefilter math lives ONCE in ops/pallas_lens.py
-# (the kernel and this XLA path must agree to float32 roundoff; two
-# copies drifted once and must not exist again).
-from ..ops.pallas_lens import (_bspline3_weights, _bspline5_weights,
-                               _bspline_freq_response,
-                               spline_coeffs as _spline_coeffs)
+def _bspline3_weights(t):
+    """Cubic B-spline basis at taps floor+(-1,0,1,2) for fraction t."""
+    w0 = (1.0 - t) ** 3 / 6.0
+    w1 = 2.0 / 3.0 - t * t + 0.5 * t ** 3
+    w2 = 2.0 / 3.0 - (1 - t) ** 2 + 0.5 * (1 - t) ** 3
+    w3 = t ** 3 / 6.0
+    return (w0, w1, w2, w3)
+
+
+def _bspline5_weights(t):
+    """Quintic B-spline basis at taps floor+(-2..3) for fraction t."""
+    def b5(x):
+        ax = jnp.abs(x)
+        r = jnp.where(ax < 1, (33.0 - 30 * ax ** 2 + 15 * ax ** 4
+                               - 5 * ax ** 5) / 60.0, 0.0)
+        r = jnp.where((ax >= 1) & (ax < 2),
+                      (51.0 + 75 * ax - 210 * ax ** 2 + 150 * ax ** 3
+                       - 45 * ax ** 4 + 5 * ax ** 5) / 120.0, r)
+        return jnp.where((ax >= 2) & (ax < 3), (3.0 - ax) ** 5 / 120.0, r)
+    return tuple(b5(t - m) for m in (-2, -1, 0, 1, 2, 3))
+
+
+def _bspline_freq_response(n, order):
+    """Frequency response of the centered B-spline sampling kernel."""
+    taps = {3: np.array([1.0, 4.0, 1.0]) / 6.0,
+            5: np.array([1.0, 26.0, 66.0, 26.0, 1.0]) / 120.0}[order]
+    w = 2 * np.pi * np.fft.fftfreq(n)
+    half = (len(taps) - 1) // 2
+    resp = np.full(n, taps[half])
+    for j in range(1, half + 1):
+        resp = resp + 2.0 * taps[half + j] * np.cos(j * w)
+    return resp
+
+
+def _spline_coeffs(imap, geom: Geometry, order: int):
+    """Periodic B-spline coefficients of ``imap`` via the exact Fourier
+    prefilter (deconvolve the sampling-kernel response)."""
+    ry = jnp.asarray(_bspline_freq_response(geom.ny, order), jnp.float32)
+    rx = jnp.asarray(_bspline_freq_response(geom.nx, order), jnp.float32)
+    k = F.fft2(imap, geom, "raw")
+    return F.ifft2(k / (ry[:, None] * rx[None, :]), geom, "raw").real
 
 
 @partial(jax.jit, static_argnames=("geom", "order"))
@@ -116,9 +151,9 @@ def lens_map_spline(imap, alpha, geom: Geometry, order: int = 5):
 @partial(jax.jit, static_argnames=("geom", "order"))
 def _eval_spline_coeffs(coeffs, alpha, geom: Geometry, order: int):
     """Evaluate prefiltered spline coefficients at displaced positions
-    (the gather half of :func:`lens_map_spline`; fused pipelines that
-    synthesize coefficients directly call this without the prefilter —
-    e.g. LensedQEPipeline's XLA fallback on kernel-untileable grids)."""
+    (the gather half of :func:`lens_map_spline`; pipelines that
+    synthesize coefficients directly, such as LensedQEPipeline, call
+    this without the prefilter)."""
     py = alpha[0] / geom.dy
     px = alpha[1] / geom.dx
     iy = jnp.arange(geom.ny, dtype=jnp.float32)[:, None] + py
@@ -142,8 +177,7 @@ def _eval_spline_coeffs(coeffs, alpha, geom: Geometry, order: int):
     # One shared-index gather instead of (order+1)^2 separate gathers:
     # pre-shift the coefficient map by every static stencil offset with
     # dense rolls, stack as channels, and gather all taps at the *same*
-    # base index (TPU gathers cost ~100 ns/element, so index sharing is
-    # the difference between ~100 ms and ~5 ms per 512^2 map).
+    # base index (one index computation serves every tap).
     yy = jnp.mod(yb, geom.ny)
     xx = jnp.mod(xb, geom.nx)
     base_idx = (yy * geom.nx + xx).reshape(-1)
@@ -185,8 +219,7 @@ def taylens(imap, alpha, geom: Geometry, order: int = 5):
     lmap = geom.lmap(jnp.float32)
     ly, lx = lmap[0], lmap[1]
     # build all derivative fields, then evaluate them at the displaced
-    # integer positions with ONE shared-index gather (TPU gathers are
-    # ~100x cheaper when the indices are shared across channels)
+    # integer positions with ONE shared-index gather
     fields = [imap]
     monomials = [jnp.ones_like(dx)]
     for n in range(1, order):

@@ -1,17 +1,17 @@
 """Fused end-to-end lensed-sim -> observation -> QE reconstruction.
 
-The honest "config 3" pipeline: everything the reference's
+The honest "config 6" pipeline: everything the reference's
 tt_verification loop does per Monte-Carlo iteration
 (``orphics/lensing.py:458-516`` FlatLensingSims.get_sim +
-``tutorials/tt_verification.ipynb`` cell 4 reconstruction), re-designed
-as one fused TPU program:
+``tutorials/tt_verification.ipynb`` cell 4 reconstruction), as one
+jitted program:
 
   1. unlensed CMB GRF — synthesized *directly as B-spline coefficients*
      (the spline prefilter is a Fourier multiplier, so it rides the
      synthesis filter for free),
   2. kappa GRF -> phi -> deflection (half-plane multipliers + irfft2),
-  3. spline displacement on the Pallas lens kernel
-     (:func:`orphics_tpu.ops.pallas_lens.lens_map_pallas`),
+  3. spline displacement by a shared-index gather
+     (:func:`orphics_tpu.models.lensing._eval_spline_coeffs`),
   4. beam and white noise applied in Fourier space (statistically
      identical to the reference's map-space noise add),
   5. beam deconvolution + fused half-plane TT quadratic estimator
@@ -31,17 +31,16 @@ import jax.numpy as jnp
 
 from ..geometry import Geometry, arcmin
 from ..ops import fourier as F
-from ..ops import pallas_lens
 from ..ops.binning import RfftBin2D
 from . import grf as _grf
 from . import qe as _qe
+from .lensing import _bspline_freq_response, _eval_spline_coeffs
 
 __all__ = ["LensedQEPipeline"]
 
 
 def _fphi(modl):
-    """kappa -> phi multiplier 2/(l(l+1)) with the l < 2 modes cut —
-    the ONE definition shared by the half-plane and full-plane plans."""
+    """kappa -> phi multiplier 2/(l(l+1)) with the l < 2 modes cut."""
     denom = modl * (modl + 1.0)
     fphi = np.where(denom > 0, 2.0 / np.where(denom > 0, denom, 1.0),
                     0.0)
@@ -61,12 +60,11 @@ class LensedQEPipeline:
     def __init__(self, geom: Geometry, theory, beam_arcmin=1.4,
                  noise_uk_arcmin=6.0, xlmin=100, xlmax=3000, klmin=40,
                  klmax=3000, edges=None, lens_order: int = 5,
-                 maxdisp_px: int = 8, dtype=jnp.float32,
-                 interpret: bool = False, impl: str = "auto"):
+                 dtype=jnp.float32):
+        if lens_order not in (3, 5):
+            raise ValueError("lens_order must be 3 or 5")
         self.geom = geom
         self.lens_order = lens_order
-        self.maxdisp_px = maxdisp_px
-        self.interpret = interpret
         ny, nx = geom.shape
         nxr = nx // 2 + 1
         lmax_grid = geom.ellmax_safe()
@@ -78,28 +76,22 @@ class LensedQEPipeline:
         csq_tt = _grf.covsqrt_half(geom, ells, cl_uu, dtype=dtype)
         csq_kk = _grf.covsqrt_half(geom, ells, cl_kk, dtype=dtype)
         # fold the exact B-spline prefilter into the CMB synthesis filter
-        ry = pallas_lens._bspline_freq_response(ny, lens_order)
-        rx = pallas_lens._bspline_freq_response(nx, lens_order)[:nxr]
+        ry = _bspline_freq_response(ny, lens_order)
+        rx = _bspline_freq_response(nx, lens_order)[:nxr]
         resp = jnp.asarray(ry[:, None] * rx[None, :], dtype)
         self.csq_coeff = csq_tt / resp
         self.csq_kk = csq_kk
 
-        # kappa -> phi -> deflection multipliers (i l_i * 2/(l(l+1)));
-        # built in host numpy: eager complex ops are unsupported on some
-        # TPU clients
+        # kappa -> phi -> deflection multipliers (i l_i * 2/(l(l+1)))
         modl_h = np.asarray(geom.modlmap_r(jnp.float32), np.float64)
         lmap = np.asarray(geom.lmap(jnp.float32), np.float64)
         ly_h = lmap[0][:, :nxr]
         lx_h = lmap[1][:, :nxr]
         fphi = _fphi(modl_h)
-        # kept as HOST numpy: an eager complex device conversion hangs
-        # some TPU clients; inside the jitted step it becomes a constant
-        self.alpha_filt = np.stack(
-            [1j * ly_h * fphi, 1j * lx_h * fphi]).astype(np.complex64)
+        self.alpha_filt = jnp.asarray(np.stack(
+            [1j * ly_h * fphi, 1j * lx_h * fphi]).astype(np.complex64))
 
-        # --- observation model (beam + white noise, Fourier space);
-        # host numpy again (eager jnp power is unsupported on some TPU
-        # clients)
+        # --- observation model (beam + white noise, Fourier space)
         kbeam_np = np.exp(-((beam_arcmin * arcmin) ** 2) * modl_h ** 2
                           / (16.0 * np.log(2.0)))
         self.kbeam_h = jnp.asarray(kbeam_np.astype(np.float32))
@@ -126,160 +118,12 @@ class LensedQEPipeline:
         self.binner = RfftBin2D(geom, edges)
         self.norm = float(geom.area) / float(geom.npix) ** 2
 
-        # the displacement step itself: the Pallas lens kernel where its
-        # tiling admits the geometry, else the XLA spline path — BOTH
-        # impls need this choice (the "xla" impl still prefers the
-        # Pallas displacement kernel when available)
-        self._lens_pallas = pallas_lens.supported(geom)
-
-        # --- Pallas full-plane plan (see pp_step): everything the fused
-        # MXU path needs as doubly-permuted static planes
-        ny_, nx_ = geom.shape
-        pallas_ok = (ny_ == nx_ and nx_ % 128 == 0 and nx_ >= 256
-                     and self._lens_pallas)
-        if impl == "pallas" and not pallas_ok:
-            raise ValueError(
-                f"impl='pallas' requires a square grid with n % 128 == "
-                f"0, n >= 256 and a valid lens-kernel tiling; got "
-                f"{geom.shape}. Use impl='auto' for silent fallback to "
-                "the XLA path.")
-        self.impl = "pallas" if (impl in ("auto", "pallas")
-                                 and pallas_ok) else "xla"
-        if self.impl == "pallas":
-            from ..ops import pallas_fft as pfft
-            n = nx_
-            perm, _ = pfft.row_perm(n)
-            self._perm = perm
-            pp = lambda A: jnp.asarray(
-                np.asarray(A, np.float64)[perm][:, perm]
-                .astype(np.float32))
-            ml = np.asarray(geom.modlmap(jnp.float32), np.float64)
-            ells_f = np.arange(theory.lpad + 1)
-            # full-plane synthesis scales (same normalization as the
-            # half-plane covsqrt_half: sqrt(C) npix / sqrt(area))
-            sig = geom.npix / float(geom.area) ** 0.5
-            ctt2d = np.interp(ml, ells_f, np.asarray(cl_uu), left=0,
-                              right=0)
-            ckk2d = np.interp(ml, ells_f, np.asarray(cl_kk), left=0,
-                              right=0)
-            ry_f = np.asarray(pallas_lens._bspline_freq_response(
-                n, lens_order), np.float64)
-            resp_f = ry_f[:, None] * ry_f[None, :]
-            self.csq_coeff_pp = pp(np.sqrt(np.maximum(ctt2d, 0.0))
-                                   * sig / resp_f)
-            self.csq_kk_pp = pp(np.sqrt(np.maximum(ckk2d, 0.0)) * sig)
-            # kappa -> deflection multipliers c_i = l_i * 2/(l(l+1))
-            lmap_f = np.asarray(geom.lmap(jnp.float32), np.float64)
-            fphi_f = _fphi(ml)
-            self.cy_pp = pp(lmap_f[0] * fphi_f)
-            self.cx_pp = pp(lmap_f[1] * fphi_f)
-            kbeam_f = np.exp(-((beam_arcmin * arcmin) ** 2) * ml ** 2
-                             / (16.0 * np.log(2.0)))
-            self.nscale_pp = pp(self.ncov_h / np.maximum(kbeam_f, 1e-8))
-            self.n0_pp = pp(np.asarray(self.qe.N_L_kk("TT")))
-            # permuted full-plane binning tables (shared recipe)
-            self._idc, self._icnt, self._nseg = \
-                pfft.permuted_bin_tables(ml, perm, edges)
-
-    def _interleave(self, a, b):
-        """(P, n, n) x 2 -> (2P, n, n), pairs adjacent."""
-        return jnp.stack([a, b], axis=1).reshape(
-            (2 * a.shape[0],) + a.shape[1:])
-
-    @partial(jax.jit, static_argnames=("self", "batch", "interpret"))
-    def _pp_core(self, zk, zc, w, batch: int, interpret: bool = False):
-        """Deterministic Pallas-path pipeline body from the three
-        pair-level complex noise plane sets (each (P, n, n) re/im in
-        the fft2pp layout): kappa spectra ``zk`` (scale csq_kk_pp),
-        CMB spline-coefficient spectra ``zc`` (scale csq_coeff_pp) and
-        observation noise ``w`` (scale nscale_pp).
-
-        Per map: 0.5 mirror (kappa split) + 0.5 ifft (coeff pair) +
-        1 ifft (both deflection components as Re/Im — the i of the
-        packing rides the i l_i multiplier) + the Pallas spline
-        displacement + 0.5 fft + 0.5 mirror (observed pair) + the
-        2.5-transform Pallas QE + MXU bin reduce. No XLA FFT anywhere.
-        """
-        from ..ops import pallas_fft as pfft
-        from ..ops.pallas_kernels import bin_matmul
-        geom = self.geom
-        n = geom.shape[0]
-        (zkr, zki), (zcr, zci), (wr, wi) = zk, zc, w
-        # Hermitian split of the kappa pair -> per-map input kappa
-        zmr, zmi = pfft.mirror_pp(zkr, zki, interpret=interpret)
-        Zkr = self._interleave(0.5 * (zkr + zmr), 0.5 * (zki + zmi))
-        Zki = self._interleave(0.5 * (zki - zmi), 0.5 * (zmr - zkr))
-        # CMB spline coefficients: two real maps per inverse
-        c1, c2 = pfft.ifft2pp(zcr, zci, interpret=interpret)
-        coeffs = self._interleave(c1, c2)
-        # deflection: A = (i cy + i * i cx) o Zk -> ifft gives
-        # (alpha_y, alpha_x) as Re/Im of ONE complex map each map
-        ar = -self.cy_pp * Zki - self.cx_pp * Zkr
-        ai = self.cy_pp * Zkr - self.cx_pp * Zki
-        ay, ax = pfft.ifft2pp(ar, ai, interpret=interpret)
-        alpha = jnp.stack([ay, ax], axis=1)            # (B, 2, n, n)
-        lensed = pallas_lens.lens_map_pallas(
-            coeffs[:, None], alpha, geom, order=self.lens_order,
-            maxdisp_px=self.maxdisp_px, prefiltered=True,
-            interpret=interpret)[:, 0]
-        # observed spectra: pair-packed forward + spectral noise add
-        Zor, Zoi = pfft.fft2pp(lensed[0::2], lensed[1::2],
-                               interpret=interpret)
-        Zor = Zor + wr
-        Zoi = Zoi + wi
-        omr, omi = pfft.mirror_pp(Zor, Zoi, interpret=interpret)
-        Xr = self._interleave(0.5 * (Zor + omr), 0.5 * (Zoi + omi))
-        Xi = self._interleave(0.5 * (Zoi - omi), 0.5 * (omr - Zor))
-        fkr, fki = self.qe.kappa_tt_pallas(Xr, Xi, interpret=interpret)
-        norm = jnp.float32(self.norm)
-        cross = (fkr * Zkr + fki * Zki) * norm
-        auto_in = (Zkr * Zkr + Zki * Zki) * norm
-        auto_rec = (fkr * fkr + fki * fki) * norm - self.n0_pp[None]
-        stacked = jnp.stack([cross, auto_in, auto_rec], axis=1) \
-            .reshape(3 * batch, -1)
-        sums = bin_matmul(stacked, self._idc, self._nseg,
-                          interpret=interpret)
-        out = sums[:, 1:] * self._icnt
-        return out.reshape(batch, 3, out.shape[-1])
-
     @partial(jax.jit, static_argnames=("self", "batch"))
     def step(self, key, batch: int):
         """Run ``batch`` independent sim+recon pipelines; returns the
         binned (cross, auto_in, auto_rec - N0) stack, (batch, 3, nbins)."""
-        if self.impl == "pallas":
-            from ..ops import pallas_fft as pfft
-            assert batch % 2 == 0, "pallas path packs map pairs: B even"
-            # chunk to <= 32 maps per fused program: the full graph at
-            # B = 64 crashes the TPU compile helper (oversized fused
-            # program); 32-map chunks are also near the throughput
-            # plateau, so nothing is lost
-            chunk = min(batch, 32)
-            while batch % chunk:
-                chunk -= 2
-            outs = []
-            for c in range(batch // chunk):
-                P = chunk // 2
-                # full 64-bit key words per (chunk, stream) — a 31-bit
-                # scalar seed birthday-collides over long MC campaigns
-                kc = jax.random.fold_in(key, c)
-
-                def words(s):
-                    kd = jax.random.key_data(jax.random.fold_in(kc, s))
-                    return jax.lax.bitcast_convert_type(
-                        kd.reshape(2), jnp.int32)
-
-                zk = pfft.noise_planes(self.csq_kk_pp, words(0), P,
-                                       interpret=self.interpret)
-                zc = pfft.noise_planes(self.csq_coeff_pp, words(1),
-                                       P, interpret=self.interpret)
-                w = pfft.noise_planes(self.nscale_pp, words(2), P,
-                                      interpret=self.interpret)
-                outs.append(self._pp_core(zk, zc, w, chunk,
-                                          interpret=self.interpret))
-            return outs[0] if len(outs) == 1 else \
-                jnp.concatenate(outs, axis=0)
         geom = self.geom
-        keys = jax.random.split(key, 3 * batch).reshape(batch, 3, 2)
+        keys = jax.random.split(key, (batch, 3))
         eta_c = jax.vmap(lambda k: _grf.rand_hermitian_half(k, geom))(
             keys[:, 0])
         eta_k = jax.vmap(lambda k: _grf.rand_hermitian_half(k, geom))(
@@ -291,18 +135,10 @@ class LensedQEPipeline:
         kin_h = self.csq_kk * eta_k                        # input kappa
         alpha = F.irfft2(self.alpha_filt[None] * kin_h[:, None], geom)
 
-        if self._lens_pallas:
-            lensed = pallas_lens.lens_map_pallas(
-                coeffs[:, None], alpha, geom, order=self.lens_order,
-                maxdisp_px=self.maxdisp_px, prefiltered=True,
-                interpret=self.interpret)[:, 0]
-        else:
-            # geometry the kernel can't tile: XLA spline displacement
-            # (coeffs are already prefiltered — evaluate directly)
-            from .lensing import _eval_spline_coeffs
-            lensed = jax.vmap(
-                lambda cc, aa: _eval_spline_coeffs(
-                    cc, aa, geom, self.lens_order))(coeffs, alpha)
+        # coeffs are already prefiltered: evaluate the spline directly
+        lensed = jax.vmap(
+            lambda cc, aa: _eval_spline_coeffs(
+                cc, aa, geom, self.lens_order))(coeffs, alpha)
 
         kobs_h = (self.kbeam_h * F.rfft2(lensed, geom)
                   + self.ncov_h * eta_n)
@@ -312,10 +148,9 @@ class LensedQEPipeline:
         cross = (fk.conj() * kin_h).real * self.norm
         auto_in = (kin_h.conj() * kin_h).real * self.norm
         auto_rec = (fk.conj() * fk).real * self.norm - self.n0_h[None]
-        _, b_cross = self.binner.bin(cross)
-        _, b_in = self.binner.bin(auto_in)
-        _, b_rec = self.binner.bin(auto_rec)
-        return jnp.stack([b_cross, b_in, b_rec], axis=1)
+        _, binned = self.binner.bin(
+            jnp.stack([cross, auto_in, auto_rec], axis=1))
+        return binned
 
     def centers(self):
         return self.binner.centers

@@ -1109,7 +1109,7 @@ def slice_from_box(geom: Geometry, box_rad, inclusive=False):
 
 def convolve(imap, kernel):
     """Linear ('same'-mode) real-space convolution of map(s) with a 2D
-    kernel (reference ``orphics/maps.py:2795``).  TPU-native: zero-padded
+    kernel (reference ``orphics/maps.py:2795``): zero-padded
     FFT convolution (one fused fft/ifft pair) instead of the reference's
     scipy.signal direct loop; supports leading component axes."""
     imap = jnp.asarray(imap)

@@ -1,11 +1,11 @@
 """Pixel-pixel covariances for small stamps; maximum-likelihood inpainting.
 
-TPU-native re-design of reference ``orphics/pixcov.py``: the brute-force
+JAX re-design of reference ``orphics/pixcov.py``: the brute-force
 inpainting of circular holes (Eq 3 of arXiv:1109.0286). The reference
 distributes an MPI loop over ~1e4 sources, each doing a dense
 O((ncomp n^2)^3) inverse on one rank (``pixcov.py:520-693``); here the
 per-source work is a pure function vmapped into one batched
-inverse/solve/eigh program on the MXU, and the per-map application phase
+inverse/solve/eigh program, and the per-map application phase
 (mean infill + covsqrt draw) is a single batched matmul.
 
 Math notes (matching the reference exactly):

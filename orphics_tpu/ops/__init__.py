@@ -1,5 +1,4 @@
-from . import (fourier, binning, distance, windows, alm, matfft, algorithms,
-               pallas_fft, pallas_kernels)
+from . import fourier, binning, distance, windows, alm, algorithms
 from .fourier import (fft2, ifft2, rfft2, irfft2, f2power, power2d,
                       mask_kspace, filter_map, kfilter, gauss_beam,
                       iqu2teb, teb2iqu, queb_rotmat, interp1d_to_2d)

@@ -1,25 +1,29 @@
 """Radial binning of 2D spectra — the hot reduction of every pipeline.
 
-TPU-native replacement for reference ``orphics/stats.py:782`` ``bin2D``
-(``np.digitize`` + ``np.bincount``). The bin assignment of each Fourier
-pixel is a pure function of the (static) geometry and bin edges, so it is
-precomputed once on the host; the per-map reduction on device is then a
-sorted segment-sum, which XLA lowers to an efficient reduction on TPU.
+Replaces reference ``orphics/stats.py:782`` ``bin2D`` (``np.digitize`` +
+``np.bincount``). The bin assignment of each Fourier pixel is a pure
+function of the (static) geometry and bin edges, so it is precomputed
+once on the host; the per-map reduction on device is one of three
+strategies, all exact fp32 summation:
 
-Two device strategies:
-  * ``rowcum`` (fast path, auto-detected): radial modulus maps are monotone
-    along every row after one shared static column permutation (|l| is
-    monotone in |lx| at fixed ly). Binning then becomes: permute columns
-    (static gather) -> per-row cumulative sum (dense) -> take the cumsum at
-    static per-row bin-boundary positions -> difference and reduce over
-    rows. No scatter at all — TPU scatters serialize and cost ~100x more
-    than these dense ops.
+  * ``triton``: the Pallas GPU kernel :func:`~orphics_tpu.ops.bin_kernel.
+    bin_sums` — reads each pixel once and contracts it against an
+    in-register one-hot bin matrix on the tensor cores.
+  * ``rowcum``: radial modulus maps are monotone along every row after
+    one shared static column permutation (|l| is monotone in |lx| at
+    fixed ly). Binning then becomes: permute columns (static gather) ->
+    per-row cumulative sum -> take the cumsum at static per-row
+    bin-boundary positions -> difference and reduce over rows. fp32 row
+    cumsums span only one row (<= nx same-sign terms), keeping relative
+    error at the 1e-6 level on 2048^2 grids. Needs a radial modulus map;
+    other maps take the ``segment`` path.
   * ``segment``: ``jax.ops.segment_sum`` over sort-permuted data with
-    ``indices_are_sorted=True`` — the fallback for non-radial modulus maps.
+    ``indices_are_sorted=True``.
 
-Per-bin means fold statically precomputed 1/count weights. fp32 row
-cumsums span only one row (<= nx same-sign terms), keeping relative error
-at the 1e-6 level even on 2048^2 grids.
+The default is ``_GPU_STRATEGY`` on GPUs (the fastest of the three in the
+flat-sky bench step, see PERF.md) and ``rowcum`` elsewhere;
+``ORPHICS_TPU_BIN`` overrides it. Per-bin means fold statically
+precomputed 1/count weights.
 """
 from __future__ import annotations
 
@@ -29,87 +33,73 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-__all__ = ["Bin2D", "bin1d", "bin1D", "bin_in_annuli"]
+__all__ = ["Bin2D", "RfftBin2D", "bin1d", "bin1D", "bin_in_annuli"]
+
+STRATEGIES = ("triton", "rowcum", "segment")
+_GPU_STRATEGY = "triton"
 
 
 def _default_strategy():
     env = os.environ.get("ORPHICS_TPU_BIN")
     if env:
         return env
-    return "pallas" if jax.default_backend() not in ("cpu",) else "rowcum"
+    return _GPU_STRATEGY if jax.default_backend() == "gpu" else "rowcum"
 
 
-class Bin2D:
-    """Radial (annular) binner over a fixed 2D modulus map.
+class _RadialSums:
+    """Per-bin sums of data on a fixed modulus grid (shared machinery of
+    :class:`Bin2D` and :class:`RfftBin2D`)."""
 
-    Parameters
-    ----------
-    modmap : array (ny, nx)
-        The modulus grid (``modlmap`` for spectra, ``modrmap`` for profiles).
-    bin_edges : array (nbins+1,)
-        Bin edges; semantics match ``np.digitize(..., right=True)`` as in
-        the reference (values with ``edges[i-1] < v <= edges[i]`` fall in
-        bin ``i-1``; values outside the edge range are dropped).
-    """
-
-    def __init__(self, modmap, bin_edges, strategy: str = None):
+    def _setup(self, modmap, bin_edges, strategy):
         self.strategy = strategy or _default_strategy()
+        if self.strategy not in STRATEGIES:
+            raise ValueError(f"unknown binning strategy {self.strategy!r}; "
+                             f"choose one of {STRATEGIES}")
         modmap = np.asarray(modmap, dtype=np.float64)
         bin_edges = np.asarray(bin_edges, dtype=np.float64)
         self.bin_edges = bin_edges
         self.centers = (bin_edges[1:] + bin_edges[:-1]) / 2.0
         self.cents = self.centers  # reference-compatible alias
         self.nbins = len(bin_edges) - 1
-        dig = np.digitize(modmap.reshape(-1), bin_edges, right=True)
-        # dig in [0, nbins+1]; 0 and nbins+1 are out of range.
-        self.counts = np.bincount(dig, minlength=self.nbins + 2)[1:-1]
-        # Sort pixels by bin id once (host); device reduction is then a
-        # gather + sorted segment reduce.
-        perm = np.argsort(dig, kind="stable")
-        self._perm = jnp.asarray(perm.astype(np.int32))
-        self._sorted_ids = jnp.asarray(dig[perm].astype(np.int32))
-        self._dig = dig
-        # Static per-pixel weights folding the 1/count mean normalization.
-        safe_counts = np.where(self.counts == 0, 1, self.counts)
-        wvec = np.zeros(self.nbins + 2, dtype=np.float64)
-        wvec[1:-1] = 1.0 / safe_counts
-        self._mean_w = jnp.asarray(wvec[dig[perm]].astype(np.float32))
         self._nseg = self.nbins + 2
+        # dig in [0, nbins+1]; 0 and nbins+1 are out of range.
+        dig = np.digitize(modmap.reshape(-1), bin_edges, right=True)
+        self._dig = dig
         self._dig_dev = jnp.asarray(dig.astype(np.int32))
-        self._inv_counts = jnp.asarray((1.0 / safe_counts * (self.counts > 0))
-                                       .astype(np.float32))
-        # ---- rowcum fast path: valid when one shared column permutation
-        # makes every row of the modulus map non-decreasing. True for all
-        # radial maps (modlmap, modrmap) on regular grids.
+        # rowcum applies when one shared column permutation makes every
+        # row of the modulus map non-decreasing: true for radial maps
+        # (modlmap, modrmap) on regular grids.
         ny, nx = modmap.shape
         colperm = np.argsort(modmap.min(axis=0), kind="stable")
         rows_sorted = modmap[:, colperm]
         self._rowcum = bool(np.all(np.diff(rows_sorted, axis=1) >= 0))
-        if self._rowcum:
+        if self.strategy == "rowcum" and self._rowcum:
             # count of elements <= edge per row (digitize right=True puts
             # v == edge into the lower bin, so side='right')
             pos = np.empty((ny, len(bin_edges)), dtype=np.int32)
             for y in range(ny):
-                pos[y] = np.searchsorted(rows_sorted[y], bin_edges, side="right")
+                pos[y] = np.searchsorted(rows_sorted[y], bin_edges,
+                                         side="right")
             self._colperm = jnp.asarray(colperm.astype(np.int32))
             self._pos = jnp.asarray(pos)
+        elif self.strategy != "triton":
+            perm = np.argsort(dig, kind="stable")
+            self._perm = jnp.asarray(perm.astype(np.int32))
+            self._sorted_ids = jnp.asarray(dig[perm].astype(np.int32))
+        return modmap
 
-    def _pallas_sum(self, data2d, interpret=False):
-        """MXU one-hot matmul segment reduce (see ops.pallas_kernels)."""
-        from .pallas_kernels import bin_matmul
-        lead = data2d.shape[:-2]
-        flat = data2d.reshape(-1, data2d.shape[-2] * data2d.shape[-1])
-        out = bin_matmul(flat, self._dig_dev, self._nseg, interpret=interpret)
-        return out.reshape(lead + (self._nseg,))[..., 1:-1]
+    def _set_counts(self, counts):
+        self.counts = counts
+        safe = np.where(counts == 0, 1, counts)
+        self._inv_counts = jnp.asarray(
+            (1.0 / safe * (counts > 0)).astype(np.float32))
 
-    def _dispatch_sum(self, data2d):
-        if self.strategy == "pallas":
-            return self._pallas_sum(data2d)
-        if self._rowcum:
-            return self._rowcum_sum(data2d)
+    def _kernel_sum(self, data2d, interpret=False):
+        from .bin_kernel import bin_sums
         flat = data2d.reshape(data2d.shape[:-2] + (-1,))
-        s = jnp.take(flat, self._perm, axis=-1)
-        return _batched_segment_sum(s, self._sorted_ids, self._nseg)[..., 1:-1]
+        out = bin_sums(flat, self._dig_dev, self._nseg,
+                       interpret=interpret)
+        return out[..., 1:-1].astype(data2d.dtype)
 
     def _rowcum_sum(self, data2d):
         """Scatter-free per-bin sums: column permute -> row cumsum ->
@@ -123,9 +113,39 @@ class Bin2D:
         rowbin = at_edges[..., 1:] - at_edges[..., :-1]  # (..., ny, nbins)
         return rowbin.sum(axis=-2)
 
+    def _segment_sum(self, data2d):
+        flat = data2d.reshape(data2d.shape[:-2] + (-1,))
+        s = jnp.take(flat, self._perm, axis=-1)
+        return _batched_segment_sum(s, self._sorted_ids,
+                                    self._nseg)[..., 1:-1]
+
     def sum(self, data2d):
         """Per-bin sums of ``data2d`` (leading batch dims OK)."""
-        return self._dispatch_sum(data2d)
+        if self.strategy == "triton":
+            return self._kernel_sum(data2d)
+        if self.strategy == "rowcum" and self._rowcum:
+            return self._rowcum_sum(data2d)
+        return self._segment_sum(data2d)
+
+
+class Bin2D(_RadialSums):
+    """Radial (annular) binner over a fixed 2D modulus map.
+
+    Parameters
+    ----------
+    modmap : array (ny, nx)
+        The modulus grid (``modlmap`` for spectra, ``modrmap`` for profiles).
+    bin_edges : array (nbins+1,)
+        Bin edges; semantics match ``np.digitize(..., right=True)`` as in
+        the reference (values with ``edges[i-1] < v <= edges[i]`` fall in
+        bin ``i-1``; values outside the edge range are dropped).
+    strategy : one of :data:`STRATEGIES`, or None for the default.
+    """
+
+    def __init__(self, modmap, bin_edges, strategy: str = None):
+        self._setup(modmap, bin_edges, strategy)
+        self._set_counts(np.bincount(self._dig,
+                                     minlength=self._nseg)[1:-1])
 
     def bin(self, data2d, weights=None):
         """Bin a 2D (or batch of 2D) array into annular means.
@@ -134,17 +154,17 @@ class Bin2D:
         ``bin2D.bin`` (``orphics/stats.py:790-797``).
         """
         if weights is None:
-            sums = self._dispatch_sum(data2d)
+            sums = self.sum(data2d)
             return self.centers, sums * self._inv_counts.astype(sums.dtype)
         w = jnp.broadcast_to(jnp.asarray(weights), data2d.shape[-2:])
-        num = self._dispatch_sum(data2d * w)
-        den = self._dispatch_sum(jnp.broadcast_to(w, data2d.shape))
+        num = self.sum(data2d * w)
+        den = self.sum(jnp.broadcast_to(w, data2d.shape))
         return self.centers, num / den
 
     def bin_err(self, data2d):
         """(centers, means, scatter-in-bin error) like the reference err path."""
         cents, means = self.bin(data2d)
-        sq = self._dispatch_sum(data2d * data2d) * self._inv_counts.astype(means.dtype)
+        sq = self.sum(data2d * data2d) * self._inv_counts.astype(means.dtype)
         counts = jnp.asarray(np.maximum(self.counts, 2), dtype=means.dtype)
         var = (sq - means ** 2) * counts / (counts - 1.0)
         err = jnp.sqrt(jnp.maximum(var, 0.0) / counts)
@@ -162,7 +182,7 @@ def _batched_segment_sum(data, ids, nseg):
     return jax.vmap(f)(flat).reshape(lead + (nseg,))
 
 
-class RfftBin2D:
+class RfftBin2D(_RadialSums):
     """Radial binner over the rfft half-plane that reproduces *full-plane*
     binning exactly for Hermitian-symmetric data (e.g. the power of a real
     map): half-plane sums carry multiplicity weight 2 except on the
@@ -171,65 +191,24 @@ class RfftBin2D:
     """
 
     def __init__(self, geom, bin_edges, strategy: str = None):
-        self.strategy = strategy or _default_strategy()
         # Host-f64 end to end: ``geom.modlmap(jnp.float64)`` silently
         # truncates to fp32 on an x64-off runtime (and warns), which can
         # move edge-collision pixels between bins. modlmap_np never
         # touches the device.
         full = geom.modlmap_np()
         half = full[:, :geom.nx // 2 + 1]
-        bin_edges = np.asarray(bin_edges, dtype=np.float64)
-        self.bin_edges = bin_edges
-        self.centers = (bin_edges[1:] + bin_edges[:-1]) / 2.0
-        self.cents = self.centers
-        self.nbins = len(bin_edges) - 1
-        self._nseg = self.nbins + 2
-        digf = np.digitize(full.reshape(-1), bin_edges, right=True)
-        counts_full = np.bincount(digf, minlength=self._nseg)[1:-1]
-        self.counts = counts_full
-        dig = np.digitize(half.reshape(-1), bin_edges, right=True)
-        self._dig_dev = jnp.asarray(dig.astype(np.int32))
+        self._setup(half, bin_edges, strategy)
+        digf = np.digitize(full.reshape(-1), self.bin_edges, right=True)
+        self._set_counts(np.bincount(digf, minlength=self._nseg)[1:-1])
         w = np.full(half.shape, 2.0, dtype=np.float32)
         w[:, 0] = 1.0
         if geom.nx % 2 == 0:
             w[:, -1] = 1.0
         self._w = jnp.asarray(w)
-        safe = np.where(counts_full == 0, 1, counts_full)
-        self._inv_counts = jnp.asarray(
-            (1.0 / safe * (counts_full > 0)).astype(np.float32))
-        # rowcum fallback structures on the half grid
-        colperm = np.argsort(half.min(axis=0), kind="stable")
-        rows_sorted = half[:, colperm]
-        self._rowcum = bool(np.all(np.diff(rows_sorted, axis=1) >= 0))
-        if self._rowcum:
-            pos = np.empty((half.shape[0], len(bin_edges)), dtype=np.int32)
-            for y in range(half.shape[0]):
-                pos[y] = np.searchsorted(rows_sorted[y], bin_edges, side="right")
-            self._colperm = jnp.asarray(colperm.astype(np.int32))
-            self._pos = jnp.asarray(pos)
-
-    _pallas_sum = Bin2D._pallas_sum
-    _rowcum_sum = Bin2D._rowcum_sum
-
-    def _dispatch_sum(self, d):
-        if self.strategy == "pallas":
-            return self._pallas_sum(d)
-        if self._rowcum:
-            return self._rowcum_sum(d)
-        raise NotImplementedError("segment fallback not provided for rfft binner")
 
     def bin(self, data2d_half):
         """(centers, full-plane-equivalent bin means) from half-plane data."""
-        if self.strategy == "pallas":
-            from .pallas_kernels import bin_matmul
-            lead = data2d_half.shape[:-2]
-            flat = data2d_half.reshape(-1, data2d_half.shape[-2]
-                                       * data2d_half.shape[-1])
-            out = bin_matmul(flat, self._dig_dev, self._nseg,
-                             weights=self._w.reshape(-1))
-            sums = out.reshape(lead + (self._nseg,))[..., 1:-1]
-        else:
-            sums = self._dispatch_sum(data2d_half * self._w)
+        sums = self.sum(data2d_half * self._w.astype(data2d_half.dtype))
         return self.centers, sums * self._inv_counts.astype(sums.dtype)
 
 

@@ -1,4 +1,4 @@
-"""Euclidean distance transforms on the TPU — mask growth & apodization.
+"""Euclidean distance transforms on device — mask growth & apodization.
 
 The reference leans on pixell's compiled ``distance_transform`` /
 ``distance_from`` (Fortran) for ``grow_mask``/``cosine_apodize``/

@@ -1,6 +1,6 @@
 """2D Fourier calculus on flat-sky geometries.
 
-TPU-native replacement for the FFT/power-spectrum machinery of the
+JAX replacement for the FFT/power-spectrum machinery of the
 reference's ``FourierCalc`` (``orphics/maps.py:1594-1679``) and the
 ``pixell.enmap`` fft conventions it relies on.
 
@@ -19,7 +19,7 @@ Power spectra: ``f2power(k1, k2) = Re(conj(k1) * k2) * area / npix**2``
 with *raw* ffts, identical to reference ``orphics/maps.py:1605,1620-1624``.
 
 Everything here broadcasts over arbitrary leading batch dimensions and is
-jit/vmap friendly; the ffts map onto XLA's TPU FFT.
+jit/vmap friendly; the ffts map onto XLA's FFT (cuFFT on a GPU).
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
 """Grid-axis distributed Fourier analysis over a device mesh.
 
 Maps too large for one device's HBM shard naturally over *rows* — this
-module expresses the classic MPI "pencil/slab" FFT decomposition the
-TPU way, with ``shard_map`` + ``jax.lax.all_to_all`` over a named mesh
-axis (the collective rides ICI on real hardware):
+module expresses the classic MPI "pencil/slab" FFT decomposition with
+``shard_map`` + ``jax.lax.all_to_all`` over a named mesh axis (the
+collective rides NVLink/NCCL on GPUs):
 
 * :func:`fft2_dist` — distributed 2D FFT: local row FFTs, an
   ``all_to_all`` shard transpose, local column FFTs, and an optional
@@ -179,7 +179,7 @@ def lens_cov_dist(ucov, alpha, geom: Geometry, mesh: Mesh,
                   lens_order: int = 5, kbeam=None,
                   row_axes=("sims", "grid")):
     """Row-sharded lensed pix-pix covariance L U L^T (+ beam): the
-    TPU-mesh version of the reference's MPI row loop
+    device-mesh version of the reference's MPI row loop
     (``orphics/lensing.py:563-648``, comm-rank strided rows).
 
     ``ucov`` is (npix, npix); rows shard over the flattened

@@ -33,31 +33,25 @@ __all__ = ["get_mesh", "distribute", "mpi_distribute", "ensemble",
 
 def init_multihost(coordinator_address=None, num_processes=None,
                    process_id=None, local_device_ids=None):
-    """Bootstrap multi-host JAX — the analog of the reference's MPI
+    """Bootstrap multi-process JAX — the analog of the reference's MPI
     world setup (``orphics/mpi.py:62-74``: import mpi4py, fall back to
     ``fakeMpiComm`` when absent).
 
-    On a real TPU pod slice (one process per host) call with no
-    arguments: the TPU runtime autodetects the coordinator and process
-    topology. Off-pod multi-process runs pass ``coordinator_address`` /
-    ``num_processes`` / ``process_id`` explicitly or set the standard
-    ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
+    Multi-process runs pass ``coordinator_address`` (``host:port`` of
+    process 0) / ``num_processes`` / ``process_id`` explicitly or set the
+    standard ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
     ``JAX_PROCESS_ID`` env vars. After this, ``jax.devices()`` is the
-    *global* device list, so :func:`get_mesh` meshes span the pod and
-    the ``psum``-reduced ensembles ride ICI/DCN unchanged.
+    *global* device list, so :func:`get_mesh` meshes span every process
+    and the ``psum``-reduced ensembles run unchanged.
 
-    Single-process runs (no coordinator configured, not on a pod) are a
-    no-op — the ``fakeMpiComm`` degradation. Calling twice is safe.
-    Returns ``(process_index, process_count)``.
+    Without a coordinator this is a no-op — the ``fakeMpiComm``
+    degradation. Calling twice is safe. Returns
+    ``(process_index, process_count)``.
     """
     import os
 
-    explicit = (coordinator_address
-                or os.environ.get("JAX_COORDINATOR_ADDRESS"))
-    on_pod = any(v in os.environ for v in (
-        "TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS",
-        "CLOUD_TPU_TASK_ID"))
-    if not (explicit or on_pod):
+    if not (coordinator_address
+            or os.environ.get("JAX_COORDINATOR_ADDRESS")):
         return 0, 1
     try:
         jax.distributed.initialize(
@@ -105,7 +99,7 @@ def mpi_distribute(num_tasks: int, num_cores: int, allow_empty: bool = False):
 def distribute(nsims: int, key=None, mesh: Optional[Mesh] = None):
     """Split ``nsims`` tasks into per-device PRNG key batches.
 
-    The key-split is the TPU-native analog of reference
+    The key-split is the device-native analog of reference
     ``mpi.distribute(Nsims)`` (``orphics/mpi.py:95``): every task gets an
     independent, reproducible random stream regardless of device count.
     Returns (mesh, keys) with keys shaped (ndev, nsims_per_dev, 2).
@@ -185,7 +179,7 @@ def ensemble_stats(fn: Callable, nsims: int, key=None, mesh: Optional[Mesh] = No
     compiled into one program).
 
     ``chunk``: how many sims to vmap together per scan step on each device
-    (trades VMEM/HBM for dispatch overhead).
+    (trades device memory for dispatch overhead).
     ``stack_fn``: optional ``fn(key) -> dict[str, array]`` of map-like
     outputs to be stack-summed (``add_to_stack`` analog).
     """
@@ -240,7 +234,7 @@ def ensemble_stats_checkpointed(fn: Callable, nsims: int, path: str,
     rounds of ``every`` sims, persisting the accumulated sufficient
     statistics and a round cursor to ``path`` (atomic ``os.replace``)
     after each round. Re-invoking with the same arguments loads the
-    completed rounds and computes only the remainder — the TPU-native
+    completed rounds and computes only the remainder — the device-native
     version of the reference's long MPI loops that dump
     ``Statistics`` periodically so a killed job can resume
     (``orphics/stats.py`` dump/load usage).

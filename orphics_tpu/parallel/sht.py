@@ -1,7 +1,7 @@
 """Ring-distributed spherical-harmonic transforms over a device mesh.
 
 The iso-latitude SHT decomposes naturally over *rings* — exactly the
-strategy libsharp uses over MPI ranks, expressed here the TPU way with
+strategy libsharp uses over MPI ranks, expressed here with
 ``shard_map`` + ``psum`` over a named mesh axis:
 
 * **Analysis** (``map2alm_dist``): the quadrature is a sum over rings,
@@ -23,10 +23,10 @@ instead of re-tracing.
 
 Known limitation (scale): the traced-theta ``_lambda_scan`` branch
 bakes the O(lmax^2) A/B/C recurrence tables into the program as
-constants (the serial path feeds them as device arguments); remote
-compile services reject the serialized program around lmax ~ 4096.
-Lifting the tables to replicated shard_map operands is the fix when
-distributed transforms at that band limit are needed.
+constants (the serial path feeds them as device arguments), so the
+program grows by hundreds of MB around lmax ~ 4096 and its compile time
+with it. Lifting the tables to replicated shard_map operands is the fix
+when distributed transforms at that band limit are needed.
 """
 from __future__ import annotations
 
@@ -176,8 +176,8 @@ def _map2alm_spin_dist_fn(mesh: Mesh, axis: str, rings: sht.RingGeom,
     Lpad = -(-(lmax + 1) // sht._LBLOCK) * sht._LBLOCK
 
     def local(q_l, u_l, theta_l, w_l):
-        # ONE shared ring-FFT preamble with the serial and Pallas spin
-        # paths (phase/nphi conventions can never drift); the full-ring
+        # ONE shared ring-FFT preamble with the serial spin path
+        # (phase/nphi conventions can never drift); the full-ring
         # quadrature weights it returns are discarded for the SHARDED
         # w_l of this device's rings.
         Fp, Fm, _ = sht._spin_ring_analysis(q_l, u_l, rings, lmax)

@@ -1,6 +1,6 @@
 """Sufficient-statistics Monte-Carlo accumulator on device meshes.
 
-TPU-native replacement for the reference's MPI reducers:
+Device-mesh replacement for the reference's MPI reducers:
 ``orphics/stats.py:577`` ``Stats`` (tagged Send/Recv gather) and
 ``orphics/stats.py:918`` ``Statistics`` (``MPI.Allreduce(IN_PLACE, SUM)`` of
 counts / sums / outer-product cross terms, ``stats.py:1209-1230``).

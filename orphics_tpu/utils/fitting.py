@@ -359,7 +359,7 @@ def alpha_from_confidence(c):
 
 def timeit(fn):
     """Wall-time decorator (reference ``stats.py:902``); blocks on device
-    results so the number is honest on TPU."""
+    results so the number is honest on an accelerator."""
     import functools
     import time as _time
 

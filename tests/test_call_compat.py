@@ -1,5 +1,4 @@
-"""Tutorial-surface call compatibility (VERDICT r3 item 2 done-
-criterion): CALL — not hasattr — the ~20 entry points the reference
+"""Tutorial-surface call compatibility: CALL — not hasattr — the ~20 entry points the reference
 tutorials (``/root/reference/tutorials/*.ipynb``) use, with reference-
 style arguments. The two documented idiom changes apply throughout
 (MIGRATION.md #1: ``geom`` in place of ``(shape, wcs)``; #2: PRNG keys
@@ -195,8 +194,8 @@ def test_n1_tt_call_surface(geom, th):
 
 def test_fastcl_call_surface():
     """FastCl(geom, ells, cl1d, bin_edges) + sim_bandpowers(key) /
-    map_bandpowers(map) — the fused sim->power->bin engine's public
-    spellings (interpret mode on CPU)."""
+    map_bandpowers(map) — the sim->power->bin engine's public
+    spellings."""
     from orphics_tpu.models.fastcl import FastCl
     g = maps.rect_geometry(width_deg=4.0, px_res_arcmin=4.0 * 60 / 256)
     assert g.shape == (256, 256)

@@ -237,7 +237,7 @@ def test_rfft_binner_edge_collision_f64(geom):
     np.digitize on the f64 rfft half-plane — including pixels whose |l|
     sits exactly on a bin edge, where an fp32-truncated grid (the old
     ``geom.modlmap(jnp.float64)`` device path, silently fp32 under
-    x64-off) moves pixels across the edge (VERDICT r4 item 2)."""
+    x64-off) moves pixels across the edge."""
     from orphics_tpu.ops.binning import RfftBin2D
     half64 = geom.modlmap_r_np()                       # host f64, exact
     half32 = half64.astype(np.float32).astype(np.float64)
@@ -260,7 +260,7 @@ def test_rfft_binner_edge_collision_f64(geom):
 def test_binner_construction_emits_no_truncation_warnings(geom):
     """Constructing the bench-path binners must not request device float64
     (jax warns + truncates under x64-off); guards the 'warning-free bench'
-    claim (VERDICT r4 item 2)."""
+    claim."""
     import warnings
     from orphics_tpu.ops.binning import RfftBin2D
     edges = np.arange(80, 4000, 160.0)
@@ -275,56 +275,10 @@ def test_binner_construction_emits_no_truncation_warnings(geom):
     assert not bad, bad
 
 
-def test_pallas_bin_interpret_mode(geom):
-    """The MXU one-hot bin kernel agrees with the rowcum path (interpreter
-    mode on CPU)."""
-    edges = np.arange(80, 4000, 160.0)
-    binner = Bin2D(geom.modlmap_np(), edges)
-    rng = np.random.default_rng(22)
-    data = jnp.asarray(rng.standard_normal((2,) + geom.shape).astype(np.float32))
-    ref = binner._rowcum_sum(data.astype(jnp.float64))
-    got = binner._pallas_sum(data, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-4,
-                               atol=1e-4)
-
-
-def test_pallas_mirror_pp_interpret_mode():
-    """Block-copy Fourier mirror Zm(k) = Z(-k) in the doubly-permuted
-    layout agrees bit-exactly with the take-based double gather."""
-    from orphics_tpu.ops import pallas_fft as pf
-    rng = np.random.default_rng(11)
-    for n in (256, 512):
-        zr = jnp.asarray(rng.standard_normal((4, n, n)).astype(np.float32))
-        zi = jnp.asarray(rng.standard_normal((4, n, n)).astype(np.float32))
-        perm, inv = pf.row_perm(n)
-        mrow = inv[(n - perm) % n]
-        gr, gi = pf.mirror_pp(zr, zi, interpret=True)
-        np.testing.assert_array_equal(np.asarray(gr),
-                                      np.asarray(zr)[:, mrow][:, :, mrow])
-        np.testing.assert_array_equal(np.asarray(gi),
-                                      np.asarray(zi)[:, mrow][:, :, mrow])
-
-
-def test_pallas_ifft2pp_scaled_interpret_mode():
-    """The fused elementwise pre-multiplier in ifft2pp_scaled is bit-exact
-    vs multiplying first and calling the unscaled kernels."""
-    from orphics_tpu.ops import pallas_fft as pf
-    rng = np.random.default_rng(17)
-    n = 256
-    kr = jnp.asarray(rng.standard_normal((3, n, n)).astype(np.float32))
-    ki = jnp.asarray(rng.standard_normal((3, n, n)).astype(np.float32))
-    sc = jnp.asarray(rng.standard_normal((n, n)).astype(np.float32))
-    yr, yi = pf.rowifft(sc * kr, sc * ki, rtile=64, interpret=True)
-    ar, ai = pf.colifft(yr, yi, interpret=True)
-    br, bi = pf.ifft2pp_scaled(kr, ki, sc, interpret=True)
-    np.testing.assert_array_equal(np.asarray(br), np.asarray(ar))
-    np.testing.assert_array_equal(np.asarray(bi), np.asarray(ai))
-
-
 def test_fastcl_map_bandpowers(th):
-    """FastCl.map_bandpowers (fused pair-packed half-plane pipeline)
-    matches the FourierCalc-style fft2 -> f2power -> Bin2D reference,
-    including odd-batch zero padding."""
+    """FastCl.map_bandpowers (rfft2 half-plane pipeline) matches the
+    FourierCalc-style fft2 -> f2power -> Bin2D reference for an odd
+    batch."""
     from orphics_tpu.models.fastcl import FastCl
     from orphics_tpu.ops import fourier as F
     n = 256
@@ -344,8 +298,8 @@ def test_fastcl_map_bandpowers(th):
 
 
 def test_fastcl_cross_bandpowers(th):
-    """FastCl.cross_bandpowers (Im(Z Zm)/2 on the half plane) matches the
-    f2power(k1, k2) + Bin2D reference."""
+    """FastCl.cross_bandpowers (Re(x conj y) on the half plane) matches
+    the f2power(k1, k2) + Bin2D reference."""
     from orphics_tpu.models.fastcl import FastCl
     from orphics_tpu.ops import fourier as F
     n = 256
@@ -364,92 +318,6 @@ def test_fastcl_cross_bandpowers(th):
         k2 = F.fft2(jnp.asarray(b, jnp.float64), geom, "raw")
         ref.append(np.asarray(binner.bin(F.f2power(k1, k2, geom))[1]))
     np.testing.assert_allclose(got, np.stack(ref), rtol=3e-5, atol=1e-7)
-
-
-def test_ifft2pp_noise_fallback():
-    """ifft2pp_noise (on-chip PRNG synthesis) CPU fallback: same law as
-    ifft2pp_scaled of explicit normals — check shape contract and GRF
-    variance (unit scale white noise: var(map) = 1/npix per part)."""
-    from orphics_tpu.ops import pallas_fft as pf
-    n = 256
-    sc = jnp.ones((n, n), jnp.float32)
-    m1, m2 = pf.ifft2pp_noise(sc, 11, 2, interpret=True)
-    assert m1.shape == (2, n, n) and m2.shape == (2, n, n)
-    a = np.asarray(m1)
-    assert np.isfinite(a).all()
-    np.testing.assert_allclose(a.var() * n * n, 1.0, rtol=0.05)
-
-
-def test_pallas_qc_pp_half_interpret_mode():
-    """Half-plane mirror-even power fields (qs, c) from qc_pp_half agree
-    with explicit full-plane construction, and the 2*half - row(ky=0) +
-    row(ky=n/2) identity reconstructs full-plane bin sums exactly."""
-    from orphics_tpu.ops import pallas_fft as pf
-    from orphics_tpu.ops.pallas_kernels import bin2_matmul
-    rng = np.random.default_rng(13)
-    n, B = 256, 3
-    zr = jnp.asarray(rng.standard_normal((B, n, n)).astype(np.float32))
-    zi = jnp.asarray(rng.standard_normal((B, n, n)).astype(np.float32))
-    perm, inv = pf.row_perm(n)
-    mrow = inv[(n - perm) % n]
-    p_of_h, pnyq = pf.half_rows(n)
-    zrn, zin = np.asarray(zr), np.asarray(zi)
-    zm_r = zrn[:, mrow][:, :, mrow]
-    zm_i = zin[:, mrow][:, :, mrow]
-    qs_full = 0.5 * (zrn ** 2 + zin ** 2 + zm_r ** 2 + zm_i ** 2)
-    c_full = zrn * zm_r - zin * zm_i
-    qs, c = pf.qc_pp_half(zr, zi, interpret=True)
-    np.testing.assert_allclose(np.asarray(qs), qs_full[:, p_of_h],
-                               atol=2e-5)
-    np.testing.assert_allclose(np.asarray(c), c_full[:, p_of_h], atol=2e-5)
-    # bin-sum reconstruction with mirror-symmetric ids
-    ids = rng.integers(0, 20, size=(n, n)).astype(np.int32)
-    ids = np.minimum(ids, ids[mrow][:, mrow])
-    nsg = 24
-    bqc, bcc = bin2_matmul(qs.reshape(B, -1), c.reshape(B, -1),
-                           jnp.asarray(ids[p_of_h].reshape(-1)), nsg,
-                           block=4096, interpret=True)
-    for x, bh in ((qs_full, bqc), (c_full, bcc)):
-        full = np.stack([[x[b][ids == s].sum() for s in range(nsg)]
-                         for b in range(B)])
-        r0 = np.stack([[x[b, 0][ids[0] == s].sum() for s in range(nsg)]
-                       for b in range(B)])
-        rn = np.stack([[x[b, pnyq][ids[pnyq] == s].sum()
-                        for s in range(nsg)] for b in range(B)])
-        rec = 2.0 * np.asarray(bh) - r0 + rn
-        np.testing.assert_allclose(rec, full, rtol=2e-5, atol=1e-3)
-
-
-def test_pallas_bin_pair_power_interpret_mode():
-    """Fused Hermitian-split + power + bin kernel vs the explicit split:
-    bin(|F1|^2), bin(|F2|^2) from (bin(|Z|^2) +- bin(Re Z.Zm))/2 (exact
-    because the bin partition is mirror-symmetric)."""
-    from orphics_tpu.ops.pallas_kernels import bin_pair_power
-    rng = np.random.default_rng(7)
-    B, n = 3, 64
-    N = n * n
-    Zr = rng.standard_normal((B, N)).astype(np.float32)
-    Zi = rng.standard_normal((B, N)).astype(np.float32)
-    k = np.arange(n)
-    m1d = (n - k) % n                       # true 2D mirror permutation
-    M = (m1d[:, None] * n + m1d[None, :]).reshape(-1)
-    Zmr, Zmi = Zr[:, M], Zi[:, M]
-    ky = np.minimum(k, n - k)
-    mod = np.hypot(ky[:, None], ky[None, :]).reshape(-1)
-    edges = np.linspace(0.5, 30, 12)
-    dig = np.digitize(mod, edges, right=True).astype(np.int32)
-    nseg = len(edges) + 1
-    bq, bc = bin_pair_power(jnp.asarray(Zr), jnp.asarray(Zi),
-                            jnp.asarray(Zmr), jnp.asarray(Zmi),
-                            jnp.asarray(dig), nseg, block=1024,
-                            interpret=True)
-    f1r, f1i = 0.5 * (Zr + Zmr), 0.5 * (Zi - Zmi)
-    f2r, f2i = 0.5 * (Zi + Zmi), -0.5 * (Zr - Zmr)
-    for p, got in ((f1r ** 2 + f1i ** 2, (np.asarray(bq) + np.asarray(bc)) / 2),
-                   (f2r ** 2 + f2i ** 2, (np.asarray(bq) - np.asarray(bc)) / 2)):
-        ref = np.stack([[p[b, dig == s].sum() for s in range(nseg)]
-                        for b in range(B)])
-        np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-4)
 
 
 def test_rand_map_r_statistics(geom, th):
@@ -481,176 +349,8 @@ def test_rand_map_r_statistics(geom, th):
     assert abs((p1ds.mean(axis=0) / thb).mean() - 1) < 0.02
 
 
-def test_pallas_fft_interpret_mode():
-    """Pallas column-FFT kernels vs numpy (interpreter mode, n=256)."""
-    from orphics_tpu.ops import pallas_fft as pf
-    rng = np.random.default_rng(33)
-    n = 256
-    xr = jnp.asarray(rng.standard_normal((1, n, 128)).astype(np.float32))
-    xi = jnp.asarray(rng.standard_normal((1, n, 128)).astype(np.float32))
-    yre, yim = pf.colfft(xr, xi, interpret=True)
-    ynre = np.asarray(pf.natural_rows(yre))
-    ynim = np.asarray(pf.natural_rows(yim))
-    ref = np.fft.fft(np.asarray(xr) + 1j * np.asarray(xi), axis=-2)
-    scale = np.abs(ref).max()
-    assert np.abs(ynre - ref.real).max() / scale < 1e-5
-    assert np.abs(ynim - ref.imag).max() / scale < 1e-5
-    # inverse accepts permuted input, returns natural order
-    zr, zi = pf.colifft(yre, yim, interpret=True)
-    np.testing.assert_allclose(np.asarray(zr), np.asarray(xr), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(zi), np.asarray(xi), atol=1e-5)
-
-
-def test_pallas_fft_generic_B_interpret_mode():
-    """Non-power-of-2 B = n/128 (mixed-radix stage 1): full 2D pp
-    pipeline — fft2pp, mirror, half-plane qc, inverse — vs numpy at
-    n = 384 (B = 3) and n = 640 (B = 5)."""
-    from orphics_tpu.ops import pallas_fft as pf
-    rng = np.random.default_rng(44)
-    for n in (384, 640):
-        x = rng.standard_normal((1, n, n)).astype(np.float32)
-        y = rng.standard_normal((1, n, n)).astype(np.float32)
-        Zr, Zi = pf.fft2pp(jnp.asarray(x), jnp.asarray(y), interpret=True)
-        perm, inv = pf.row_perm(n)
-        ref = np.fft.fft2(x + 1j * y)
-        got = (np.asarray(Zr) + 1j * np.asarray(Zi))[:, inv][:, :, inv]
-        scale = np.abs(ref).max()
-        assert np.abs(got - ref).max() / scale < 1e-5
-        # mirror Z(-k) in the doubly-permuted layout
-        mr, mi = pf.mirror_pp(Zr, Zi, interpret=True)
-        mref = np.roll(ref[:, ::-1, ::-1], (1, 1), (-2, -1))
-        mgot = (np.asarray(mr) + 1j * np.asarray(mi))[:, inv][:, :, inv]
-        assert np.abs(mgot - mref).max() / scale < 1e-5
-        # half-plane mirror-even fields
-        qs, c = pf.qc_pp_half(Zr, Zi, interpret=True)
-        Znat = got
-        qs_ref = (0.5 * (np.abs(Znat) ** 2 + np.abs(mref) ** 2)
-                  )[:, perm][:, :, perm]
-        c_ref = (Znat * mref).real[:, perm][:, :, perm]
-        p_of_h, _ = pf.half_rows(n)
-        assert (np.abs(np.asarray(qs) - qs_ref[:, p_of_h]).max()
-                / qs_ref.max() < 1e-5)
-        assert (np.abs(np.asarray(c) - c_ref[:, p_of_h]).max()
-                / np.abs(c_ref).max() < 1e-5)
-        # roundtrip
-        rr, ri = pf.ifft2pp(Zr, Zi, interpret=True)
-        np.testing.assert_allclose(np.asarray(rr), x, atol=3e-5)
-        np.testing.assert_allclose(np.asarray(ri), y, atol=3e-5)
-
-
-def test_pallas_ilc_coadd_parity_interpret_mode():
-    """The bench config-4 fast path: cILC coadd as static per-band
-    weights applied to packed Fourier pairs via the (Z, Z(-k)) planes,
-    vs the reference-convention ilc.cilc on XLA ffts."""
-    from orphics_tpu.ops import pallas_fft as pf
-    from orphics_tpu.models import ilc
-    rng = np.random.default_rng(7)
-    n, nf = 256, 4
-    maps = rng.standard_normal((nf, n, n)).astype(np.float32)
-    cov = rng.standard_normal((nf, nf, n, n)).astype(np.float64)
-    cov = np.einsum("ik...,jk...->ij...", cov, cov) + 5 * np.eye(nf)[
-        :, :, None, None]
-    cinv = np.moveaxis(np.linalg.inv(np.moveaxis(cov, (0, 1), (-2, -1))),
-                       (-2, -1), (0, 1)).astype(np.float32)
-    a = np.ones(nf, np.float32)
-    b = np.asarray([1.0, -2.0, 0.5, 3.0], np.float32)
-    # reference: full cilc on XLA ffts
-    kmaps = np.fft.fft2(maps)
-    coadd_ref = np.fft.ifft2(np.asarray(
-        ilc.cilc(jnp.asarray(kmaps), jnp.asarray(cinv), jnp.asarray(a),
-                 jnp.asarray(b)))).real
-    # fast path: packed pairs + mirror + static weights, permuted layout
-    perm, _ = pf.row_perm(n)
-    w2d = np.asarray(ilc.cilc_weights(jnp.asarray(cinv), jnp.asarray(a),
-                                      jnp.asarray(b)), np.float32)
-    w_pp = jnp.asarray(w2d[:, perm][:, :, perm])
-    m1 = jnp.asarray(maps[0::2])
-    m2 = jnp.asarray(maps[1::2])
-    Zr, Zi = pf.fft2pp(m1, m2, interpret=True)
-    Zmr, Zmi = pf.mirror_pp(Zr, Zi, interpret=True)
-    F1r, F1i = 0.5 * (Zr + Zmr), 0.5 * (Zi - Zmi)
-    F2r, F2i = 0.5 * (Zi + Zmi), 0.5 * (Zmr - Zr)
-    wa, wb = w_pp[0::2], w_pp[1::2]
-    cr = jnp.einsum("q...,q...->...", F1r, wa) + jnp.einsum(
-        "q...,q...->...", F2r, wb)
-    ci = jnp.einsum("q...,q...->...", F1i, wa) + jnp.einsum(
-        "q...,q...->...", F2i, wb)
-    o1, _ = pf.ifft2pp(cr[None], ci[None], interpret=True)
-    scale = np.abs(coadd_ref).max()
-    assert np.abs(np.asarray(o1)[0] - coadd_ref).max() / scale < 1e-4
-
-
-def test_pallas_fused_qc_s_interpret_mode():
-    """Fused row-DFT + half-plane power passes (fft2pp_qc / fft2pp_s)
-    must match the two-step fft2pp + qc_pp_half / s_pp_half pipeline
-    bit-for-bit in interpret mode, for pow2 and generic B."""
-    from orphics_tpu.ops import pallas_fft as pf
-    rng = np.random.default_rng(55)
-    for n in (256, 384):
-        m1 = jnp.asarray(rng.standard_normal((2, n, n)).astype(np.float32))
-        m2 = jnp.asarray(rng.standard_normal((2, n, n)).astype(np.float32))
-        Zr, Zi = pf.fft2pp(m1, m2, interpret=True)
-        qs_ref, c_ref = pf.qc_pp_half(Zr, Zi, interpret=True)
-        s_ref = pf.s_pp_half(Zr, Zi, interpret=True)
-        qs, c, zrow_r, zrow_i = pf.fft2pp_qc(m1, m2, interpret=True)
-        s, zr2, zi2 = pf.fft2pp_s(m1, m2, interpret=True)
-        np.testing.assert_array_equal(np.asarray(qs), np.asarray(qs_ref))
-        np.testing.assert_array_equal(np.asarray(c), np.asarray(c_ref))
-        np.testing.assert_array_equal(np.asarray(s), np.asarray(s_ref))
-        np.testing.assert_array_equal(np.asarray(zrow_r),
-                                      np.asarray(Zr[:, :128]))
-        np.testing.assert_array_equal(np.asarray(zrow_i),
-                                      np.asarray(Zi[:, :128]))
-
-
-def test_row_perm_consistency():
-    from orphics_tpu.ops import pallas_fft as pf
-    n = 2048
-    perm, inv = pf.row_perm(n)
-    np.testing.assert_array_equal(perm[inv], np.arange(n))
-    # permuted[p] holds k(p): k = k2 + B*k1 with p = A*k2 + k1
-    A, B = 128, n // 128
-    p = np.arange(n)
-    k2, k1 = p // A, p % A
-    np.testing.assert_array_equal(perm, k2 + B * k1)
-
-
-def test_pallas_rowfft_interpret_mode():
-    from orphics_tpu.ops import pallas_fft as pf
-    rng = np.random.default_rng(34)
-    n = 256
-    xr = jnp.asarray(rng.standard_normal((1, 8, n)).astype(np.float32))
-    xi = jnp.asarray(rng.standard_normal((1, 8, n)).astype(np.float32))
-    yre, yim = pf.rowfft(xr, xi, rtile=8, interpret=True)
-    _, inv = pf.row_perm(n)
-    ref = np.fft.fft(np.asarray(xr) + 1j * np.asarray(xi), axis=-1)
-    scale = np.abs(ref).max()
-    assert np.abs(np.asarray(yre)[:, :, inv] - ref.real).max() / scale < 1e-5
-    assert np.abs(np.asarray(yim)[:, :, inv] - ref.imag).max() / scale < 1e-5
-    zr, zi = pf.rowifft(yre, yim, rtile=8, interpret=True)
-    np.testing.assert_allclose(np.asarray(zr), np.asarray(xr), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(zi), np.asarray(xi), atol=1e-5)
-
-
-def test_pallas_fft2pp_interpret_mode():
-    from orphics_tpu.ops import pallas_fft as pf
-    rng = np.random.default_rng(35)
-    n = 256
-    xr = jnp.asarray(rng.standard_normal((1, n, n)).astype(np.float32))
-    xi = jnp.asarray(rng.standard_normal((1, n, n)).astype(np.float32))
-    # interpret mode on the CPU backend, composing the two kernels as
-    # fft2pp does
-    Yr, Yi = pf.colfft(xr, xi, ctile=128, interpret=True)
-    Yr, Yi = pf.rowfft(Yr, Yi, rtile=8, interpret=True)
-    _, inv = pf.row_perm(n)
-    nat = np.asarray(Yr)[:, inv][:, :, inv] + 1j * np.asarray(Yi)[:, inv][:, :, inv]
-    ref = np.fft.fft2(np.asarray(xr) + 1j * np.asarray(xi))
-    assert np.abs(nat - ref).max() / np.abs(ref).max() < 2e-5
-
-
 def test_fastcl_cross_window_fused():
-    """cross_bandpowers(window=w) (taper fused onto the FFT kernel load)
-    must match pre-multiplied maps."""
+    """cross_bandpowers(window=w) must match pre-multiplied maps."""
     from orphics_tpu import rect_geometry
     from orphics_tpu.models.fastcl import FastCl
     from orphics_tpu.ops.windows import get_taper
@@ -658,7 +358,7 @@ def test_fastcl_cross_window_fused():
     n = 256
     geom = rect_geometry(width_arcmin=n * 2.0, px_res_arcmin=2.0)
     edges = np.arange(100, 2500, 150.0)
-    fc = FastCl(geom, bin_edges=edges, interpret=True)
+    fc = FastCl(geom, bin_edges=edges)
     taper, _w2 = get_taper(geom, taper_percent=12.0)
     taper = jnp.asarray(np.asarray(taper), jnp.float32)
     m1 = jnp.asarray(rng.standard_normal((2, n, n)).astype(np.float32))
@@ -668,38 +368,9 @@ def test_fastcl_cross_window_fused():
     np.testing.assert_allclose(a, b, rtol=2e-5, atol=1e-8)
 
 
-def test_pallas_rowcombine_parity_interpret_mode():
-    """Fused row-DFT + Hermitian weighted combine (rowcombine_pp, the
-    ILC coadd kernel) vs the explicit fft2pp + mirror + split + weighted
-    sum, including the wrap-strip patches."""
-    from orphics_tpu.ops import pallas_fft as pf
-    rng = np.random.default_rng(21)
-    n, nq, nco = 384, 3, 2      # generic B = 3 exercises mixed-radix too
-    npt = nco * nq
-    m1 = jnp.asarray(rng.standard_normal((npt, n, n)).astype(np.float32))
-    m2 = jnp.asarray(rng.standard_normal((npt, n, n)).astype(np.float32))
-    w = jnp.asarray(rng.standard_normal((2 * nq, n, n)).astype(np.float32))
-    yr, yi = pf.colfft(m1, m2, interpret=True)
-    Zr, Zi = pf.rowfft(yr, yi, interpret=True)
-    Zmr, Zmi = pf.mirror_pp(Zr, Zi, interpret=True)
-    F1r, F1i = 0.5 * (Zr + Zmr), 0.5 * (Zi - Zmi)
-    F2r, F2i = 0.5 * (Zi + Zmi), 0.5 * (Zmr - Zr)
-    sh = (nco, nq, n, n)
-    wa, wb = w[0::2], w[1::2]
-    Cr_ref = (jnp.einsum("jq...,q...->j...", F1r.reshape(sh), wa)
-              + jnp.einsum("jq...,q...->j...", F2r.reshape(sh), wb))
-    Ci_ref = (jnp.einsum("jq...,q...->j...", F1i.reshape(sh), wa)
-              + jnp.einsum("jq...,q...->j...", F2i.reshape(sh), wb))
-    Cr, Ci = pf.rowcombine_pp(yr, yi, 0.5 * wa, -0.5 * wb, 0.5 * wa,
-                              0.5 * wb, nq, interpret=True)
-    scale = float(jnp.abs(Cr_ref).max())
-    assert float(jnp.abs(Cr - Cr_ref).max()) / scale < 1e-5
-    assert float(jnp.abs(Ci - Ci_ref).max()) / scale < 1e-5
-
-
 def test_cilc_coadd_fused_library_api():
-    """ilc.cilc_coadd_fused (band maps -> coadd maps on the fused
-    kernels) matches ifft2(cilc(fft2(maps))).real for an isotropic
+    """ilc.cilc_coadd_fused (band maps -> coadd maps on the rfft half
+    plane) matches ifft2(cilc(fft2(maps))).real for an isotropic
     (mirror-symmetric) 2D inverse covariance."""
     from orphics_tpu.models import ilc
     rng = np.random.default_rng(1)
@@ -722,8 +393,7 @@ def test_cilc_coadd_fused_library_api():
     ref = np.stack([np.fft.ifft2(np.asarray(cilc(
         jnp.asarray(np.fft.fft2(maps_in[j])), jnp.asarray(cinv),
         jnp.asarray(a), jnp.asarray(b)))).real for j in range(nco)])
-    got = np.asarray(ilc.cilc_coadd_fused(maps_in, cinv, a, b,
-                                          interpret=True))
+    got = np.asarray(ilc.cilc_coadd_fused(maps_in, cinv, a, b))
     assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-5
 
 
@@ -749,7 +419,7 @@ def test_linear_coadd_fused_variants():
     refs = np.stack([np.fft.ifft2(np.asarray(ilc.silc(
         jnp.asarray(np.fft.fft2(maps_in[j])), jnp.asarray(cinv)))).real
         for j in range(nco)])
-    gots = np.asarray(ilc.silc_coadd_fused(maps_in, cinv, interpret=True))
+    gots = np.asarray(ilc.silc_coadd_fused(maps_in, cinv))
     assert np.abs(gots - refs).max() / np.abs(refs).max() < 1e-5
     # kspace coadd
     kb2d = np.stack([np.full((n, n), 0.5 + i) for i in range(nf)])
@@ -761,49 +431,8 @@ def test_linear_coadd_fused_variants():
         den = (kb2d ** 2 / nc2d).sum(0)
         refk.append(np.fft.ifft2(num / den).real)
     refk = np.stack(refk)
-    gotk = np.asarray(ilc.kspace_coadd_fused(maps_in, kb2d, nc2d,
-                                             interpret=True))
+    gotk = np.asarray(ilc.kspace_coadd_fused(maps_in, kb2d, nc2d))
     assert np.abs(gotk - refk).max() / np.abs(refk).max() < 1e-5
-
-
-class TestPallasFFTRegressions:
-    """Review regressions for ops/pallas_fft.py."""
-
-    def test_perm_dot_fast_is_exact(self):
-        """_perm_dot's fast path must be BIT-exact for a permutation
-        matrix (regression: the old 2-term bf16 split dropped fp32
-        bits 17-24, ~1e-5 relative error on every mirror plane; the
-        3-term split is exact since fp32's 24 significand bits are
-        3 x 8 bf16 bits)."""
-        from orphics_tpu.ops import pallas_fft as pf
-        rng = np.random.default_rng(0)
-        a = (rng.standard_normal((64, 128))
-             * np.exp(rng.uniform(-18, 18, (64, 128)))).astype(np.float32)
-        J = np.eye(128, dtype=np.float32)[::-1]
-        out = np.asarray(pf._perm_dot(jnp.asarray(a), jnp.asarray(J),
-                                      fast=True))
-        np.testing.assert_array_equal(out, a[:, ::-1])
-
-    def test_pfft2_nonsquare(self):
-        """pfft2/pifft2 on a non-square 128B x 128B' grid must match
-        jnp.fft (regression: the row-axis permutation was applied to
-        BOTH axes, silently returning a wrongly-shaped selection)."""
-        from orphics_tpu.ops import pallas_fft as pf
-        rng = np.random.default_rng(1)
-        x = rng.standard_normal((256, 512)).astype(np.float32)
-        ref = np.asarray(jnp.fft.fft2(jnp.asarray(x)))
-        out = np.asarray(pf.pfft2(jnp.asarray(x), interpret=True))
-        assert out.shape == ref.shape
-        scale = np.abs(ref).max()
-        np.testing.assert_allclose(out, ref, atol=2e-4 * scale)
-        back = np.asarray(pf.pifft2(jnp.asarray(out), interpret=True))
-        np.testing.assert_allclose(back.real, x, atol=2e-4)
-
-    def test_noise_planes_rtile_guard(self):
-        from orphics_tpu.ops import pallas_fft as pf
-        scale = jnp.ones((256, 256), jnp.float32)
-        with pytest.raises(AssertionError, match="divide"):
-            pf.noise_planes(scale, 1, 1, rtile=96)
 
 
 class TestSynthesisRegressions:
@@ -860,15 +489,15 @@ class TestSynthesisRegressions:
                           bin_edges=edges)
         fc_cut = FastCl(geom, np.arange(2, lmax + 1), dense[2:],
                         bin_edges=edges)
-        np.testing.assert_allclose(np.asarray(fc_cut._covsqrt_pp),
-                                   np.asarray(fc_dense._covsqrt_pp),
+        np.testing.assert_allclose(np.asarray(fc_cut._covsqrt_h),
+                                   np.asarray(fc_dense._covsqrt_h),
                                    atol=1e-7)
         with pytest.raises(ValueError, match="bin_edges"):
             FastCl(geom)
 
 
 def test_binner_construction_f64_edge_collisions():
-    """VERDICT r3 weak #1: binner membership must be computed from the
+    """Binner membership must be computed from the
     full-precision host |l| grid. Build edges that collide exactly with
     grid |l| values (where an fp32-truncated grid would digitize
     differently) and check Bin2D's counts equal a pure-f64 digitize."""

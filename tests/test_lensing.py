@@ -225,55 +225,8 @@ def test_nlgenerator_runs(geom, th):
 
 
 # ------------------------------------------------------------------
-# Pallas displacement kernel + fused end-to-end pipeline (round 3)
+# Fused end-to-end lensing pipeline
 # ------------------------------------------------------------------
-
-def test_lens_map_pallas_parity(geom, th):
-    """The Pallas displacement kernel (interpret mode) matches the
-    independently-validated XLA spline path on a realistic lensing
-    deflection, orders 3 and 5."""
-    from orphics_tpu.ops import pallas_lens
-    fls = lensing.FlatLensingSims(geom, th, beam_arcmin=1.5,
-                                  noise_uk_arcmin=7.0)
-    kc, kk = jax.random.split(jax.random.PRNGKey(7))
-    unl = fls.get_unlensed(kc).astype(jnp.float32)
-    kappa = fls.get_kappa(kk)
-    alpha = lensing.alpha_from_kappa(kappa, geom).astype(jnp.float32)
-    assert float(jnp.abs(alpha).max() / geom.dy) < 8.0  # inside the cap
-    for order in (3, 5):
-        ref = np.asarray(lensing.lens_map_spline(unl, alpha, geom,
-                                                 order=order))
-        out = np.asarray(pallas_lens.lens_map_pallas(
-            unl, alpha, geom, order=order, interpret=True))
-        scale = np.abs(ref).max()
-        np.testing.assert_allclose(out / scale, ref / scale, atol=2e-5,
-                                   err_msg=f"order {order}")
-
-
-def test_lens_map_pallas_batched(geom, th):
-    """Batched (B, C, ny, nx) kernel call with per-batch deflections ==
-    per-map spline results; components share the batch deflection."""
-    from orphics_tpu.ops import pallas_lens
-    fls = lensing.FlatLensingSims(geom, th, beam_arcmin=1.5,
-                                  noise_uk_arcmin=7.0)
-    B, C = 2, 2
-    keys = jax.random.split(jax.random.PRNGKey(11), B * (C + 1)).reshape(
-        B, C + 1, 2)
-    imaps = jnp.stack([jnp.stack([fls.get_unlensed(keys[b, c])
-                                  for c in range(C)]) for b in range(B)])
-    alphas = jnp.stack([
-        lensing.alpha_from_kappa(fls.get_kappa(keys[b, C]), geom)
-        for b in range(B)]).astype(jnp.float32)
-    out = np.asarray(pallas_lens.lens_map_pallas(
-        imaps.astype(jnp.float32), alphas, geom, order=3, interpret=True))
-    for b in range(B):
-        for c in range(C):
-            ref = np.asarray(lensing.lens_map_spline(
-                imaps[b, c], alphas[b], geom, order=3))
-            scale = np.abs(ref).max()
-            np.testing.assert_allclose(out[b, c] / scale, ref / scale,
-                                       atol=2e-5, err_msg=f"b={b} c={c}")
-
 
 def test_lenspipe_matches_unfused(geom, th):
     """LensedQEPipeline.step == the same pipeline assembled from the
@@ -283,14 +236,13 @@ def test_lenspipe_matches_unfused(geom, th):
     from orphics_tpu.ops import fourier as OF
     pipe = lenspipe.LensedQEPipeline(geom, th, beam_arcmin=2.0,
                                      noise_uk_arcmin=5.0, xlmax=3000,
-                                     klmax=2000, lens_order=3,
-                                     interpret=True)
+                                     klmax=2000, lens_order=3)
     batch = 3
     key = jax.random.PRNGKey(21)
     got = np.asarray(pipe.step(key, batch))
 
     # unfused re-implementation with identical draws
-    keys = jax.random.split(key, 3 * batch).reshape(batch, 3, 2)
+    keys = jax.random.split(key, (batch, 3))
     ells = np.arange(th.lpad + 1)
     csq_tt = _grf.covsqrt_half(geom, ells, np.asarray(th.uCl("TT", ells)))
     rows = []
@@ -315,56 +267,3 @@ def test_lenspipe_matches_unfused(geom, th):
     np.testing.assert_allclose(got / scale, ref / scale, atol=2e-4)
 
 
-def test_lens_kernel_blocks_and_fallback():
-    """Block selection admits n % 256 == 128 grids (BW=128) and odd row
-    counts with multiple-of-8 divisors; unsupported shapes report
-    supported()=False and LensedQEPipeline falls back instead of
-    crashing inside step (review regression: the old gate admitted
-    384^2 which then died in lens_map_pallas)."""
-    from orphics_tpu.ops import pallas_lens
-    assert pallas_lens.blocks(384, 384) == (64, 128)
-    assert pallas_lens.blocks(600, 600)[0] == 40
-    assert pallas_lens.blocks(600, 600)[1] is None      # 600 % 128 != 0
-    assert pallas_lens.blocks(320, 320) == (64, None)   # 320 % 128 != 0
-    assert pallas_lens.blocks(256, 256) == (64, 256)
-    assert pallas_lens.blocks(48, 48) == (48, 48)
-    g384 = rect_geometry(width_arcmin=384 * 2.0, px_res_arcmin=2.0)
-    assert pallas_lens.supported(g384)
-    g320 = rect_geometry(width_arcmin=320 * 2.0, px_res_arcmin=2.0)
-    assert not pallas_lens.supported(g320)
-
-
-def test_lens_map_pallas_nonsquare_tiling(th):
-    """Kernel parity on a grid that exercises the NEW tilings: ny=80
-    (row block 40 < 64, two row tiles) x nx=384 (column block 128,
-    three column tiles)."""
-    from orphics_tpu.ops import pallas_lens
-    from orphics_tpu import rect_geometry as rg
-    geom = rg(width_arcmin=384 * 2.0, height_arcmin=80 * 2.0,
-              px_res_arcmin=2.0)
-    assert pallas_lens.blocks(*geom.shape) == (40, 128)
-    fls = lensing.FlatLensingSims(geom, th, beam_arcmin=1.5,
-                                  noise_uk_arcmin=7.0)
-    kc, kk = jax.random.split(jax.random.PRNGKey(3))
-    unl = fls.get_unlensed(kc).astype(jnp.float32)
-    alpha = lensing.alpha_from_kappa(fls.get_kappa(kk),
-                                     geom).astype(jnp.float32)
-    ref = np.asarray(lensing.lens_map_spline(unl, alpha, geom, order=3))
-    out = np.asarray(pallas_lens.lens_map_pallas(
-        unl, alpha, geom, order=3, interpret=True))
-    scale = np.abs(ref).max()
-    np.testing.assert_allclose(out / scale, ref / scale, atol=2e-5)
-
-
-def test_lenspipe_unsupported_grid_falls_back(th):
-    """A geometry the lens kernel can't tile (320: nx % 128 != 0) must
-    construct with impl='auto', run step() via the XLA spline fallback,
-    and reject impl='pallas' with a clear error."""
-    from orphics_tpu.models.lenspipe import LensedQEPipeline
-    geom = rect_geometry(width_arcmin=320 * 2.0, px_res_arcmin=2.0)
-    with pytest.raises(ValueError, match="impl='pallas'"):
-        LensedQEPipeline(geom, th, impl="pallas")
-    pipe = LensedQEPipeline(geom, th, impl="auto")
-    assert pipe.impl == "xla" and not pipe._lens_pallas
-    out = np.asarray(pipe.step(jax.random.PRNGKey(0), 2))
-    assert out.shape[0] == 2 and np.all(np.isfinite(out))

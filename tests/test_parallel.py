@@ -399,8 +399,7 @@ class TestInitMultihost:
     """init_multihost: the reference's MPI-or-fake world bootstrap
     (orphics/mpi.py:62-74) on the jax.distributed runtime."""
 
-    ENV = ("JAX_COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES",
-           "MEGASCALE_COORDINATOR_ADDRESS", "CLOUD_TPU_TASK_ID")
+    ENV = ("JAX_COORDINATOR_ADDRESS",)
 
     def test_single_process_noop(self, monkeypatch):
         from orphics_tpu.parallel import init_multihost

@@ -107,7 +107,7 @@ class TestMV:
 
     def test_vs_planck_2018_curve(self, nlgen):
         """Quantitative curve-level comparison against the shipped
-        Planck 2018 MV N_L^kk (BASELINE.md ground-truth file, used by
+        Planck 2018 MV N_L^kk (the ground-truth file used by
         ``interfaces.PlanckLensing.get_nlkk``).
 
         Physics of the residual: the released curve is the *effective*

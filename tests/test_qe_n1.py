@@ -7,8 +7,8 @@ Two-layer validation:
    algebra (term split, padding/aliasing, every 2pi and area factor).
 2. Physics — in a lensed-CMB Monte Carlo, recon auto - N0 - N1 must
    match the input C_L^kk better than - N0 alone at low L (the
-   reference ecosystem's tt_verification excess; VERDICT round-4
-   item 6). The MC leg lives in TestN1MonteCarlo (slow tier).
+   reference ecosystem's tt_verification excess). The MC leg lives in
+   TestN1MonteCarlo (slow tier).
 """
 import numpy as np
 import pytest

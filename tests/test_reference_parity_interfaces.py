@@ -64,7 +64,7 @@ def _drive(cls, tmpdir):
 
 def test_camb_interface_ini_rewrite_matches_reference(tmp_path):
     rci, rtext = _drive(rint.CAMBInterface, tmp_path / "ref")
-    tci, ttext = _drive(tint.CAMBInterface, tmp_path / "tpu")
+    tci, ttext = _drive(tint.CAMBInterface, tmp_path / "ours")
     assert ttext == rtext
     # the working copy is named off the template with the uid suffix
     assert os.path.basename(tci.ifile) == os.path.basename(rci.ifile)
@@ -82,16 +82,16 @@ def test_camb_interface_get_cls_matches_reference(tmp_path):
     ncomp = 5  # T, E, phi + 2 windows
     table = np.column_stack(
         [ells] + [rng.standard_normal(ells.size) for _ in range(ncomp ** 2)])
-    for sub in ("ref", "tpu"):
+    for sub in ("ref", "ours"):
         d = tmp_path / sub
         d.mkdir(exist_ok=True)
         with open(d / "params.ini", "w") as f:
             f.write(TEMPLATE)
     rci = rint.CAMBInterface(str(tmp_path / "ref" / "params.ini"),
                              str(tmp_path / "ref"))
-    tci = tint.CAMBInterface(str(tmp_path / "tpu" / "params.ini"),
-                             str(tmp_path / "tpu"))
-    for sub, ci in (("ref", rci), ("tpu", tci)):
+    tci = tint.CAMBInterface(str(tmp_path / "ours" / "params.ini"),
+                             str(tmp_path / "ours"))
+    for sub, ci in (("ref", rci), ("ours", tci)):
         np.savetxt(str(tmp_path / sub / (ci.out_name + "_scalCovCls.dat")),
                    table)
     rells, rcls = rci.get_cls()

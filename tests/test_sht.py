@@ -155,8 +155,8 @@ class TestRoundtrip:
 
     def test_outer_jit_no_tracer_leak(self):
         """Transforms called under an OUTER jit must not poison the
-        device-table caches with tracers (regression: _scan_tables_dev /
-        pallas _prep_dev cached `jnp.asarray` results, which are tracers
+        device-table caches with tracers (regression: _scan_tables_dev
+        cached `jnp.asarray` results, which are tracers
         inside a trace -> UnexpectedTracerError on the next call). Run
         traced first, then eager, then traced again with a different
         closure — all three must agree."""
@@ -291,220 +291,6 @@ class TestQuadrature:
             sht.map2alm(jnp.ones(rings.shape), rings, 16)
 
 
-class TestPallasSHT:
-    """The Pallas Legendre-transform kernel (ops/pallas_sht.py) vs the
-    scan path in "full" mode, interpret mode on CPU."""
-
-    def test_parity_and_roundtrip(self):
-        from orphics_tpu.ops import pallas_sht as ps
-        lmax = 63
-        rings = sht.gauss_legendre_rings(lmax)
-        a0 = _random_alm(jax.random.PRNGKey(11), lmax,
-                         dtype=jnp.complex64)
-        old = sht._COMPENSATE
-        try:
-            sht._COMPENSATE = "full"
-            jax.clear_caches()
-            m_ref = np.asarray(sht.alm2map(a0, rings, lmax))
-            m_pl = np.asarray(ps.alm2map_pl(a0, rings, lmax,
-                                            interpret=True))
-            assert np.abs(m_pl - m_ref).max() < 1e-6 * np.abs(m_ref).max()
-            a_ref = np.asarray(sht.map2alm(jnp.asarray(m_ref), rings,
-                                           lmax))
-            a_pl = np.asarray(ps.map2alm_pl(jnp.asarray(m_ref), rings,
-                                            lmax, interpret=True))
-            assert np.abs(a_pl - a_ref).max() < 1e-6 * np.abs(a_ref).max()
-        finally:
-            sht._COMPENSATE = old
-            jax.clear_caches()
-        # kernel-only roundtrip at the dd-full accuracy level
-        a2 = np.asarray(ps.map2alm_pl(
-            ps.alm2map_pl(a0, rings, lmax, interpret=True), rings, lmax,
-            interpret=True))
-        assert np.abs(a2 - np.asarray(a0)).max() < 3e-6
-
-    def test_multi_tile_revisit(self, monkeypatch):
-        """Exercise the multi-tile grid — cross-ring-tile (jt > 0)
-        output accumulation and multiple m tiles — in interpret mode.
-        The default tiles give a (1, 1) grid at every CPU-testable
-        lmax, which would leave the revisit init/accumulate logic
-        covered only by the opt-in on-chip tests."""
-        from orphics_tpu.ops import pallas_sht as ps
-        monkeypatch.setattr(ps, "_tiles", lambda lmax: (8, 8))
-        lmax = 31
-        rings = sht.gauss_legendre_rings(lmax)
-        a0 = _random_alm(jax.random.PRNGKey(17), lmax,
-                         dtype=jnp.complex64)
-        m = ps.alm2map_pl(a0, rings, lmax, interpret=True)
-        a2 = ps.map2alm_pl(m, rings, lmax, interpret=True)
-        assert np.abs(np.asarray(a2 - a0)).max() < 3e-6
-        # spin-2 through the same tiny-tile grid
-        def spin_alm(s):
-            a = _random_alm(jax.random.PRNGKey(s), lmax,
-                            dtype=jnp.complex64)
-            mat = sht._alm2mat(a, lmax).at[:2, :].set(0)
-            return sht._mat2alm(mat, lmax)
-        e0, b0 = spin_alm(41), spin_alm(42)
-        q, u = ps.alm2map_spin_pl(e0, b0, rings, lmax, interpret=True)
-        e2, b2 = ps.map2alm_spin_pl(q, u, rings, lmax, interpret=True)
-        assert float(jnp.abs(e2 - e0).max()) < 3e-6
-        assert float(jnp.abs(b2 - b0).max()) < 3e-6
-
-    def test_f64_inputs_rejected(self):
-        """Direct kernel calls must refuse 64-bit inputs instead of
-        silently downcasting (the dispatcher keeps them on the scan
-        path, which delivers ~1e-12)."""
-        from orphics_tpu.ops import pallas_sht as ps
-        lmax = 31
-        rings = sht.gauss_legendre_rings(lmax)
-        nalm = (lmax + 1) * (lmax + 2) // 2
-        with pytest.raises(TypeError, match="float32"):
-            ps.map2alm_pl(jnp.zeros(rings.shape, jnp.float64), rings,
-                          lmax, interpret=True)
-        with pytest.raises(TypeError, match="float32"):
-            ps.alm2map_pl(jnp.zeros((nalm,), jnp.complex128), rings,
-                          lmax, interpret=True)
-
-    def test_probe_degrades_gracefully(self, monkeypatch):
-        """If the kernel canary fails (e.g. the accelerator's compile
-        helper rejects Mosaic), dispatch must permanently fall back to
-        the scan path with a warning — never crash user pipelines."""
-        from orphics_tpu.ops import pallas_sht as ps
-        monkeypatch.setitem(sht._PALLAS_PROBE, "done", False)
-        monkeypatch.setitem(sht._PALLAS_PROBE, "ok", True)
-
-        def boom(*a, **k):
-            raise RuntimeError("mosaic compile helper crashed")
-
-        monkeypatch.setattr(ps, "alm2map_pl", boom)
-        with pytest.warns(UserWarning, match="scan path"):
-            assert sht._pallas_probe_ok() is False
-        assert sht._pallas_probe_ok() is False   # cached, no re-probe
-        # and a canary that produced garbage instead of raising
-        monkeypatch.setitem(sht._PALLAS_PROBE, "done", False)
-        monkeypatch.setattr(ps, "alm2map_pl",
-                            lambda a, r, l, **k: jnp.full(r.shape, jnp.nan))
-        monkeypatch.setattr(
-            ps, "map2alm_pl",
-            lambda m, r, l, **k: jnp.full(((l + 1) * (l + 2) // 2,),
-                                          jnp.nan, jnp.complex64))
-        with pytest.warns(UserWarning, match="canary"):
-            assert sht._pallas_probe_ok() is False
-
-    def test_non_multiple_lmax(self):
-        """lmax + 1 not divisible by the unroll/tile sizes: padding
-        (zero tables, l0 = -1 columns) must be exact."""
-        from orphics_tpu.ops import pallas_sht as ps
-        lmax = 45
-        rings = sht.gauss_legendre_rings(lmax)
-        a0 = _random_alm(jax.random.PRNGKey(13), lmax,
-                         dtype=jnp.complex64)
-        a2 = np.asarray(ps.map2alm_pl(
-            ps.alm2map_pl(a0, rings, lmax, interpret=True), rings, lmax,
-            interpret=True))
-        assert np.abs(a2 - np.asarray(a0)).max() < 3e-6
-
-    def test_batched_wrapper(self):
-        """Leading batch dims loop the compiled kernel per map."""
-        from orphics_tpu.ops import pallas_sht as ps
-        lmax = 31
-        rings = sht.gauss_legendre_rings(lmax)
-        alms = jnp.stack([
-            _random_alm(jax.random.PRNGKey(s), lmax, dtype=jnp.complex64)
-            for s in (1, 2, 3)])
-        maps = ps.alm2map_pl(alms, rings, lmax, interpret=True)
-        assert maps.shape == (3, rings.ntheta, rings.nphi)
-        for i in range(3):
-            ref = ps.alm2map_pl(alms[i], rings, lmax, interpret=True)
-            assert np.abs(np.asarray(maps[i]) - np.asarray(ref)).max() == 0
-        a2 = ps.map2alm_pl(maps, rings, lmax, interpret=True)
-        assert a2.shape == alms.shape
-        assert np.abs(np.asarray(a2) - np.asarray(alms)).max() < 3e-6
-
-    def test_empty_batch(self):
-        """Zero-length batches return empty results (scan-path parity)
-        instead of crashing in the chunk loop."""
-        from orphics_tpu.ops import pallas_sht as ps
-        lmax = 31
-        rings = sht.gauss_legendre_rings(lmax)
-        nalm = (lmax + 1) * (lmax + 2) // 2
-        m = ps.alm2map_pl(jnp.zeros((0, nalm), jnp.complex64), rings,
-                          lmax, interpret=True)
-        assert m.shape == (0, rings.ntheta, rings.nphi)
-        a = ps.map2alm_pl(jnp.zeros((0,) + rings.shape, jnp.float32),
-                          rings, lmax, interpret=True)
-        assert a.shape == (0, nalm)
-        q, u = ps.alm2map_spin_pl(jnp.zeros((0, nalm), jnp.complex64),
-                                  jnp.zeros((0, nalm), jnp.complex64),
-                                  rings, lmax, interpret=True)
-        assert q.shape == u.shape == (0, rings.ntheta, rings.nphi)
-
-    def test_spin2_batched_packed(self):
-        """Batched spin-2 goes through the packed (multi-map) kernels;
-        parity with the per-map path."""
-        from orphics_tpu.ops import pallas_sht as ps
-        lmax = 31
-        rings = sht.gauss_legendre_rings(lmax)
-        def spin_alm(s):
-            a = _random_alm(jax.random.PRNGKey(s), lmax,
-                            dtype=jnp.complex64)
-            mat = sht._alm2mat(a, lmax).at[:2, :].set(0)
-            return sht._mat2alm(mat, lmax)
-        es = jnp.stack([spin_alm(s) for s in (5, 6, 7)])
-        bs = jnp.stack([spin_alm(s) for s in (8, 9, 10)])
-        q, u = ps.alm2map_spin_pl(es, bs, rings, lmax, interpret=True)
-        assert q.shape == (3, rings.ntheta, rings.nphi)
-        for i in range(3):
-            qr, ur = ps.alm2map_spin_pl(es[i], bs[i], rings, lmax,
-                                        interpret=True)
-            sc = float(jnp.abs(qr).max())
-            assert float(jnp.abs(q[i] - qr).max()) < 1e-6 * sc
-            assert float(jnp.abs(u[i] - ur).max()) < 1e-6 * sc
-        e2, b2 = ps.map2alm_spin_pl(q, u, rings, lmax, interpret=True)
-        assert e2.shape == es.shape
-        assert float(jnp.abs(e2 - es).max()) < 3e-6
-        assert float(jnp.abs(b2 - bs).max()) < 3e-6
-
-    def test_spin2_parity_and_roundtrip(self):
-        """Spin-2 as two n = -+2 kernel launches vs the scan path."""
-        from orphics_tpu.ops import pallas_sht as ps
-        lmax = 63
-        rings = sht.gauss_legendre_rings(lmax)
-        ke, kb = jax.random.split(jax.random.PRNGKey(21))
-        def spin_alm(k):
-            a = _random_alm(k, lmax, dtype=jnp.complex64)
-            mat = sht._alm2mat(a, lmax).at[:2, :].set(0)  # l0 = 2
-            return sht._mat2alm(mat, lmax)
-        e0, b0 = spin_alm(ke), spin_alm(kb)
-        old = sht._COMPENSATE
-        try:
-            sht._COMPENSATE = "full"
-            jax.clear_caches()
-            q_ref, u_ref = sht.alm2map_spin(e0, b0, rings, lmax)
-            q_ref = np.asarray(q_ref); u_ref = np.asarray(u_ref)
-            q_pl, u_pl = ps.alm2map_spin_pl(e0, b0, rings, lmax,
-                                            interpret=True)
-            scale = max(np.abs(q_ref).max(), np.abs(u_ref).max())
-            assert np.abs(np.asarray(q_pl) - q_ref).max() < 1e-6 * scale
-            assert np.abs(np.asarray(u_pl) - u_ref).max() < 1e-6 * scale
-            e_ref, b_ref = sht.map2alm_spin(
-                jnp.asarray(q_ref, jnp.float32),
-                jnp.asarray(u_ref, jnp.float32), rings, lmax)
-            e_pl, b_pl = ps.map2alm_spin_pl(q_ref.astype(np.float32),
-                                            u_ref.astype(np.float32),
-                                            rings, lmax, interpret=True)
-            assert np.abs(np.asarray(e_pl) - np.asarray(e_ref)).max() < 2e-6
-            assert np.abs(np.asarray(b_pl) - np.asarray(b_ref)).max() < 2e-6
-        finally:
-            sht._COMPENSATE = old
-            jax.clear_caches()
-        # kernel-only roundtrip
-        e2, b2 = ps.map2alm_spin_pl(q_pl, u_pl, rings, lmax,
-                                    interpret=True)
-        assert np.abs(np.asarray(e2) - np.asarray(e0)).max() < 3e-6
-        assert np.abs(np.asarray(b2) - np.asarray(b0)).max() < 3e-6
-
-
 class TestValidation:
     """Review regressions: silent-wrong-output paths now raise."""
 
@@ -551,210 +337,3 @@ class TestValidation:
                 cls[i], np.asarray(almops.alm2cl(alms[i])), rtol=1e-12)
 
 
-class TestFoldedKernel:
-    """North-south folded Pallas kernels (round 4): parity vs the scan
-    path at both ring-count parities, dead-tile table sanity, and the
-    asymmetric-grid fallback."""
-
-    def test_fold_engages_on_symmetric_grids(self):
-        from orphics_tpu.ops import pallas_sht as ps
-        assert ps._rings_symmetric(sht.gauss_legendre_rings(33))
-        assert ps._rings_symmetric(sht.clenshaw_curtis_rings(33))
-
-    def test_asymmetric_rings_fall_back_unfolded(self):
-        from orphics_tpu.ops import pallas_sht as ps
-        rings = sht.gauss_legendre_rings(16)
-        th = np.asarray(rings.theta_array())
-        th[0] *= 0.9                       # break the symmetry
-        bad = sht.RingGeom(theta=tuple(th.tolist()),
-                           weights=rings.weights,
-                           nphi=rings.nphi)
-        assert not ps._rings_symmetric(bad)
-
-    @pytest.mark.parametrize("lmax", [33, 64])   # even + odd ntheta
-    def test_fold_matches_scan_both_parities(self, lmax):
-        from orphics_tpu.ops import pallas_sht as ps
-        rings = sht.gauss_legendre_rings(lmax)
-        assert rings.ntheta % 2 == (1 if lmax % 2 == 0 else 0)
-        rng = np.random.default_rng(0)
-        m = jnp.asarray(rng.standard_normal(rings.shape).astype(np.float32))
-        a_pl = ps.map2alm_pl(m, rings, lmax, interpret=True)
-        a_sc = sht.map2alm(m, rings, lmax)
-        assert float(jnp.abs(a_pl - a_sc).max()
-                     / jnp.abs(a_sc).max()) < 2e-6
-        m_pl = ps.alm2map_pl(a_sc, rings, lmax, interpret=True)
-        m_sc = sht.alm2map(a_sc, rings, lmax)
-        assert float(jnp.abs(m_pl - m_sc).max()
-                     / jnp.abs(m_sc).max()) < 2e-6
-
-    def test_packed_fold_matches_scan(self):
-        from orphics_tpu.ops import pallas_sht as ps
-        lmax = 48
-        rings = sht.gauss_legendre_rings(lmax)
-        rng = np.random.default_rng(1)
-        mb = jnp.asarray(rng.standard_normal(
-            (3,) + rings.shape).astype(np.float32))
-        ab = ps.map2alm_pl(mb, rings, lmax, interpret=True)
-        ab_s = sht.map2alm(mb, rings, lmax)
-        assert float(jnp.abs(ab - ab_s).max()
-                     / jnp.abs(ab_s).max()) < 2e-6
-        mb_pl = ps.alm2map_pl(ab_s, rings, lmax, interpret=True)
-        mb_s = sht.alm2map(ab_s, rings, lmax)
-        assert float(jnp.abs(mb_pl - mb_s).max()
-                     / jnp.abs(mb_s).max()) < 2e-6
-
-    def test_dead_tile_table(self):
-        """At large lmax some polar-ring-tile x high-m-tile programs are
-        marked dead; every live tile runs the full chunk count; and the
-        margin keeps everything below the turning point. Round 5: the
-        bounds table also carries the per-tile captured-seed loop START
-        (min l_s over the tile) — it must never precede the old m-base
-        start, and must beat it on polar tiles (the ring skip)."""
-        from orphics_tpu.ops import pallas_sht as ps
-        lmax = 2047
-        rings = sht.gauss_legendre_rings(lmax)
-        bounds = ps._prep_host(lmax, rings, 128, 256, fold=True)["bounds"]
-        n_im = bounds.shape[0] // 3
-        lstart, tab, shi = (bounds[:n_im], bounds[n_im:2 * n_im],
-                            bounds[2 * n_im:])
-        nch = -(-(lmax + 1) // ps._UNROLL)
-        assert set(np.unique(tab)) <= {0, nch}
-        assert (tab == 0).any()            # some dead tiles at 2047
-        # equatorial ring tile (last jt) is never dead
-        assert np.all(tab[:, -1] == nch)
-        # dead only where the whole tile sits below the turning point
-        th = np.asarray(rings.theta_array())[: (rings.ntheta + 1) // 2]
-        for im in range(tab.shape[0]):
-            for jt in range(tab.shape[1]):
-                if tab[im, jt] == 0:
-                    rows = th[jt * 256: (jt + 1) * 256]
-                    assert im * 128 > lmax * np.max(np.sin(rows))
-        # captured-seed starts: never before the old m-base start, and
-        # strictly later on the polar ring tile at moderate-to-high m
-        live = tab > 0
-        old_start = (np.arange(n_im) * 128 // ps._UNROLL)[:, None]
-        assert np.all(lstart[live] >= np.broadcast_to(
-            old_start, lstart.shape)[live])
-        assert np.all(lstart <= tab)
-        assert np.all(shi <= tab) and np.all(shi[live] >= lstart[live])
-        polar = lstart[n_im // 2, 0]       # m ~ lmax/2, most-polar rings
-        assert polar > old_start[n_im // 2, 0], \
-            "per-(ring,m) l_s start did not engage on the polar tile"
-        # the skip must claim a real fraction of the total work at 2047
-        tot_old = np.sum(np.maximum(tab - np.broadcast_to(
-            old_start, lstart.shape), 0)[live])
-        tot_new = np.sum((tab - lstart)[live])
-        # measured 0.858 at (mtile, ttile) = (128, 256): the tile min
-        # over 256 rings x 128 m's limits the skip (per-lane ideal is
-        # 0.68); guard that at least ~2/3 of that gain stays
-        assert tot_new < 0.9 * tot_old, (tot_new, tot_old)
-
-
-class TestFoldedSpin:
-    """Round-4 spin fold: the Wigner-d reflection d(pi-th) =
-    (-1)^(l+m) d_{n->-n}(th) assembled at the wrapper level from
-    half-ring packed launches — parity with the scan path at both
-    ring-count parities, single and batched."""
-
-    @pytest.mark.parametrize("lmax", [33, 32])
-    def test_spin_fold_matches_scan(self, lmax):
-        from orphics_tpu.ops import pallas_sht as ps
-        rings = sht.gauss_legendre_rings(lmax)
-        rng = np.random.default_rng(0)
-        q = jnp.asarray(rng.standard_normal(rings.shape).astype(np.float32))
-        u = jnp.asarray(rng.standard_normal(rings.shape).astype(np.float32))
-        e_pl, b_pl = ps.map2alm_spin_pl(q, u, rings, lmax, interpret=True)
-        e_sc, b_sc = sht.map2alm_spin(q, u, rings, lmax)
-        scale = float(jnp.abs(e_sc).max())
-        assert float(jnp.abs(e_pl - e_sc).max()) < 2e-6 * scale
-        assert float(jnp.abs(b_pl - b_sc).max()) < 2e-6 * scale
-        q_pl, u_pl = ps.alm2map_spin_pl(e_sc, b_sc, rings, lmax,
-                                        interpret=True)
-        q_sc, u_sc = sht.alm2map_spin(e_sc, b_sc, rings, lmax)
-        s2 = float(jnp.abs(q_sc).max())
-        assert float(jnp.abs(q_pl - q_sc).max()) < 2e-6 * s2
-        assert float(jnp.abs(u_pl - u_sc).max()) < 2e-6 * s2
-
-    def test_spin_fold_batched(self):
-        from orphics_tpu.ops import pallas_sht as ps
-        lmax = 32
-        rings = sht.gauss_legendre_rings(lmax)
-        rng = np.random.default_rng(1)
-        q = jnp.asarray(rng.standard_normal(
-            (3,) + rings.shape).astype(np.float32))
-        u = jnp.asarray(rng.standard_normal(
-            (3,) + rings.shape).astype(np.float32))
-        e_pl, b_pl = ps.map2alm_spin_pl(q, u, rings, lmax, interpret=True)
-        e_sc, b_sc = sht.map2alm_spin(q, u, rings, lmax)
-        scale = float(jnp.abs(e_sc).max())
-        assert float(jnp.abs(e_pl - e_sc).max()) < 2e-6 * scale
-        q_pl, u_pl = ps.alm2map_spin_pl(e_sc, b_sc, rings, lmax,
-                                        interpret=True)
-        q_sc, u_sc = sht.alm2map_spin(e_sc, b_sc, rings, lmax)
-        s2 = float(jnp.abs(q_sc).max())
-        assert float(jnp.abs(q_pl - q_sc).max()) < 2e-6 * s2
-        assert float(jnp.abs(u_pl - u_sc).max()) < 2e-6 * s2
-
-
-class TestFastMode:
-    """The fast=True plain-fp32 recurrence (round 5): same seeds /
-    bounds / folds as the dd kernels with the compensation channels
-    dropped. Contract: close to the dd path (the fp32 random walk of
-    a ~lmax-step recurrence, measured ~6e-5 rel at lmax 127), exact
-    zero-batch/zero-map structure, and every code path (single,
-    packed, fold, spin-fold) accepts the flag."""
-
-    def test_fast_close_to_dd_all_paths(self):
-        from orphics_tpu.ops import pallas_sht as ps
-        lmax = 63
-        rings = sht.gauss_legendre_rings(lmax)
-        a0 = _random_alm(jax.random.PRNGKey(21), lmax,
-                         dtype=jnp.complex64)
-        m_dd = ps.alm2map_pl(a0, rings, lmax, interpret=True)
-        m_f = ps.alm2map_pl(a0, rings, lmax, interpret=True, fast=True)
-        scale = float(jnp.abs(m_dd).max())
-        assert float(jnp.abs(m_f - m_dd).max()) < 2e-4 * scale
-        a_dd = ps.map2alm_pl(m_dd, rings, lmax, interpret=True)
-        a_f = ps.map2alm_pl(m_dd, rings, lmax, interpret=True,
-                            fast=True)
-        s2 = float(jnp.abs(a_dd).max())
-        assert float(jnp.abs(a_f - a_dd).max()) < 2e-4 * s2
-        # packed path agrees with its own single-map path
-        ab = jnp.stack([a0, 0.5 * a0, 2.0 * a0])
-        mb = ps.alm2map_pl(ab, rings, lmax, interpret=True, fast=True)
-        assert float(jnp.abs(mb[0] - m_f).max()) == 0.0
-
-    def test_fast_spin_fold(self):
-        from orphics_tpu.ops import pallas_sht as ps
-        lmax = 32
-        rings = sht.gauss_legendre_rings(lmax)
-        rng = np.random.default_rng(7)
-        q = jnp.asarray(rng.standard_normal(
-            (2,) + rings.shape).astype(np.float32))
-        u = jnp.asarray(rng.standard_normal(
-            (2,) + rings.shape).astype(np.float32))
-        e_dd, b_dd = ps.map2alm_spin_pl(q, u, rings, lmax,
-                                        interpret=True)
-        e_f, b_f = ps.map2alm_spin_pl(q, u, rings, lmax,
-                                      interpret=True, fast=True)
-        scale = float(jnp.abs(e_dd).max())
-        assert float(jnp.abs(e_f - e_dd).max()) < 2e-4 * scale
-        assert float(jnp.abs(b_f - b_dd).max()) < 2e-4 * scale
-        q2, u2 = ps.alm2map_spin_pl(e_dd, b_dd, rings, lmax,
-                                    interpret=True, fast=True)
-        q_dd, u_dd = ps.alm2map_spin_pl(e_dd, b_dd, rings, lmax,
-                                        interpret=True)
-        s2 = float(jnp.abs(q_dd).max())
-        assert float(jnp.abs(q2 - q_dd).max()) < 2e-4 * s2
-
-    def test_dispatcher_accepts_fast(self):
-        """sht.map2alm/alm2map take fast= (a no-op on the scan path)."""
-        lmax = 16
-        rings = sht.gauss_legendre_rings(lmax)
-        a0 = _random_alm(jax.random.PRNGKey(3), lmax,
-                         dtype=jnp.complex64)
-        m = sht.alm2map(a0, rings, lmax, fast=True)
-        a2 = sht.map2alm(m, rings, lmax, fast=True)
-        assert float(jnp.abs(a2 - a0).max()) < 1e-4
-        q, u = sht.alm2map_spin(a0, 0.5 * a0, rings, lmax, fast=True)
-        sht.map2alm_spin(q, u, rings, lmax, fast=True)
