@@ -20,10 +20,14 @@ strategies, all exact fp32 summation:
   * ``segment``: ``jax.ops.segment_sum`` over sort-permuted data with
     ``indices_are_sorted=True``.
 
-The default is ``_GPU_STRATEGY`` on GPUs (the fastest of the three in the
-flat-sky bench step, see PERF.md) and ``rowcum`` elsewhere;
-``ORPHICS_TPU_BIN`` overrides it. Per-bin means fold statically
-precomputed 1/count weights.
+The default is ``_GPU_STRATEGY`` on GPU hosts (the fastest of the three in
+the flat-sky bench step, see PERF.md) and ``rowcum`` elsewhere;
+``ORPHICS_TPU_BIN`` overrides it. The ``triton`` kernel is chosen where
+the program is lowered (``lax.platform_dependent``): a program lowered
+for a CUDA device runs it, one lowered for any other device (a
+CPU-placed pipeline on a GPU host) runs ``rowcum``, or ``segment`` on a
+non-radial map. Per-bin means fold statically precomputed 1/count
+weights.
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ import os
 import numpy as np
 import jax
 import jax.numpy as jnp
+
+from .bin_kernel import bin_sums
 
 __all__ = ["Bin2D", "RfftBin2D", "bin1d", "bin1D", "bin_in_annuli"]
 
@@ -73,7 +79,10 @@ class _RadialSums:
         colperm = np.argsort(modmap.min(axis=0), kind="stable")
         rows_sorted = modmap[:, colperm]
         self._rowcum = bool(np.all(np.diff(rows_sorted, axis=1) >= 0))
-        if self.strategy == "rowcum" and self._rowcum:
+        # the plain path: the strategy itself, or the triton kernel's
+        # fallback off CUDA
+        self._use_rowcum = self._rowcum and self.strategy != "segment"
+        if self._use_rowcum:
             # count of elements <= edge per row (digitize right=True puts
             # v == edge into the lower bin, so side='right')
             pos = np.empty((ny, len(bin_edges)), dtype=np.int32)
@@ -82,7 +91,7 @@ class _RadialSums:
                                          side="right")
             self._colperm = jnp.asarray(colperm.astype(np.int32))
             self._pos = jnp.asarray(pos)
-        elif self.strategy != "triton":
+        else:
             perm = np.argsort(dig, kind="stable")
             self._perm = jnp.asarray(perm.astype(np.int32))
             self._sorted_ids = jnp.asarray(dig[perm].astype(np.int32))
@@ -94,11 +103,9 @@ class _RadialSums:
         self._inv_counts = jnp.asarray(
             (1.0 / safe * (counts > 0)).astype(np.float32))
 
-    def _kernel_sum(self, data2d, interpret=False):
-        from .bin_kernel import bin_sums
+    def _kernel_sum(self, data2d):
         flat = data2d.reshape(data2d.shape[:-2] + (-1,))
-        out = bin_sums(flat, self._dig_dev, self._nseg,
-                       interpret=interpret)
+        out = bin_sums(flat, self._dig_dev, self._nseg)
         return out[..., 1:-1].astype(data2d.dtype)
 
     def _rowcum_sum(self, data2d):
@@ -119,13 +126,17 @@ class _RadialSums:
         return _batched_segment_sum(s, self._sorted_ids,
                                     self._nseg)[..., 1:-1]
 
+    def _plain_sum(self, data2d):
+        if self._use_rowcum:
+            return self._rowcum_sum(data2d)
+        return self._segment_sum(data2d)
+
     def sum(self, data2d):
         """Per-bin sums of ``data2d`` (leading batch dims OK)."""
         if self.strategy == "triton":
-            return self._kernel_sum(data2d)
-        if self.strategy == "rowcum" and self._rowcum:
-            return self._rowcum_sum(data2d)
-        return self._segment_sum(data2d)
+            return jax.lax.platform_dependent(
+                data2d, cuda=self._kernel_sum, default=self._plain_sum)
+        return self._plain_sum(data2d)
 
 
 class Bin2D(_RadialSums):

@@ -13,8 +13,17 @@ power limit:
     alone at 2048^2 x 192 on the half plane, and inside the config-1 step
     (``FastCl.sim_bandpowers`` at 2048^2, batch 192);
   * ``lens``: the B-spline displacement gather at 512^2 x 64, order 5;
-  * ``sht``: the lmax-2047 roundtrip error and time with the contraction
-    precision at ``HIGH`` (TF32 on a GPU) and ``HIGHEST``.
+  * ``sht``: the lmax-2047 roundtrip of 1 and 4 maps, error and time with
+    the contraction precision at ``DEFAULT``, ``HIGH`` and ``HIGHEST``,
+    with the matrix products of each compiled program (cuBLAS calls and
+    XLA ``dot``s by operand precision);
+  * ``sht_dist``: ``parallel.sht.map2alm_dist`` at lmax 1023 on a ring
+    mesh of every device, 1 and 4 maps, at each precision against the
+    serial transform at ``HIGHEST``.
+
+``--hlo-dir DIR`` writes each SHT program's compiled HLO text there.
+The FFT's bandwidth share is host-timed: bytes over the host-clock
+median, not a kernel time from a trace.
 
 Times are the median of ``--reps`` runs that each end in
 ``jax.block_until_ready``, after one compile-and-warm-up run.
@@ -24,6 +33,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -48,6 +58,31 @@ def _median_time(fn, args, reps):
     return float(np.median(ts))
 
 
+def _matmul_summary(hlo):
+    """Count a compiled program's matrix products by kind, result type,
+    operand precision and algorithm: library calls (``__cublas...``) and
+    XLA's own ``dot`` instructions."""
+    counts = {}
+    for line in hlo.splitlines():
+        call = re.search(r'custom_call_target="(__cublas[^"]*)"', line)
+        if call:
+            prec = re.search(r'"operand_precision":\[([^\]]*)\]', line)
+            alg = re.search(r'"algorithm":"(\w+)"', line)
+            kind = call.group(1)
+        elif re.search(r"\bdot\(", line):
+            prec = re.search(r"operand_precision=\{([^}]*)\}", line)
+            alg = re.search(r"algorithm=(\w+)", line)
+            kind = "dot"
+        else:
+            continue
+        ty = re.search(r"=\s*\(?(\w+)\[", line)
+        key = (f"{kind} {ty.group(1) if ty else '?'} "
+               f"precision={prec.group(1).replace(chr(34), '') if prec else 'DEFAULT'} "
+               f"algorithm={alg.group(1) if alg else 'unset'}")
+        counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
 def main():
     import jax
     import jax.numpy as jnp
@@ -55,7 +90,8 @@ def main():
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--layers", default="fft,bin,lens,sht")
+    ap.add_argument("--layers", default="fft,bin,lens,sht,sht_dist")
+    ap.add_argument("--hlo-dir", default=None)
     args = ap.parse_args()
     dev = jax.devices()[0]
     if dev.platform != "gpu":
@@ -94,8 +130,8 @@ def main():
         nbytes = batch * n * n * 4 + batch * n * nxr * 8
         peak = HBM_BYTES_PER_S.get(dev.device_kind)
         emit(layer="fft", op="rfft2", shape=[batch, n, n], seconds=t,
-             bytes=nbytes, roofline_share=(nbytes / peak / t
-                                           if peak else None))
+             bytes=nbytes, host_timed_roofline_share=(
+                 nbytes / peak / t if peak else None))
 
     def binning():
         from orphics_tpu.ops.binning import RfftBin2D
@@ -137,32 +173,83 @@ def main():
         emit(layer="lens", op="spline_gather_order5", shape=[64, 512, 512],
              seconds=t)
 
+    precisions = (jax.lax.Precision.DEFAULT, jax.lax.Precision.HIGH,
+                  jax.lax.Precision.HIGHEST)
+
+    def compile_at(prec, fn, fn_args, tag):
+        """Compile ``fn`` with the SHT contractions at ``prec``; return the
+        executable and its matrix-product summary."""
+        from orphics_tpu.ops import sht
+        from orphics_tpu.parallel import sht as psht
+        default = sht._EPREC
+        sht._EPREC = prec
+        # the precision is read at trace time: drop every cached trace
+        psht._map2alm_dist_fn.cache_clear()
+        jax.clear_caches()
+        try:
+            compiled = jax.jit(fn).lower(*fn_args).compile()
+        finally:
+            sht._EPREC = default
+            psht._map2alm_dist_fn.cache_clear()
+            jax.clear_caches()
+        hlo = compiled.as_text()
+        if args.hlo_dir:
+            os.makedirs(args.hlo_dir, exist_ok=True)
+            with open(os.path.join(args.hlo_dir, f"{tag}_{prec.name}.hlo"),
+                      "w") as f:
+                f.write(hlo)
+        return compiled, _matmul_summary(hlo)
+
     def sht_precision():
         from orphics_tpu.ops import sht
         from chip_smoke import _unit_alm
         lmax = 2047
         rings = sht.gauss_legendre_rings(lmax)
         tab = sht._tables_for(rings, lmax, (0,), jnp.float32)
-        a0 = _unit_alm(jax.random.PRNGKey(4), lmax)
-        default = sht._EPREC
-        try:
-            for prec in (jax.lax.Precision.HIGH, jax.lax.Precision.HIGHEST):
-                sht._EPREC = prec
 
-                @jax.jit
-                def rt(a, t):
-                    m = sht._alm2map_impl(a, t, rings=rings, lmax=lmax)
-                    return sht._map2alm_impl(m, t, rings=rings, lmax=lmax)
+        def rt(a, t):
+            m = sht._alm2map_impl(a, t, rings=rings, lmax=lmax)
+            return sht._map2alm_impl(m, t, rings=rings, lmax=lmax)
 
-                err = float(jnp.max(jnp.abs(rt(a0, tab) - a0)))
-                t = _median_time(rt, (a0, tab), max(3, args.reps // 3))
-                emit(layer="sht", op="roundtrip", lmax=lmax,
-                     precision=str(prec), seconds=t, max_abs_err=err)
-                jax.clear_caches()
-        finally:
-            sht._EPREC = default
+        for nmaps in (1, 4):
+            keys = jax.random.split(jax.random.PRNGKey(4), nmaps)
+            a0 = jax.vmap(lambda k: _unit_alm(k, lmax))(keys)
+            if nmaps == 1:
+                a0 = a0[0]
+            for prec in precisions:
+                f, mm = compile_at(prec, rt, (a0, tab),
+                                   f"sht_rt_lmax{lmax}_n{nmaps}")
+                err = float(jnp.max(jnp.abs(f(a0, tab) - a0)))
+                t = _median_time(f, (a0, tab), max(3, args.reps // 3))
+                emit(layer="sht", op="roundtrip", lmax=lmax, maps=nmaps,
+                     precision=prec.name, seconds=t, max_abs_err=err,
+                     matmuls=mm)
 
-    layers = {"fft": fft, "bin": binning, "lens": lens, "sht": sht_precision}
+    def sht_dist():
+        from jax.sharding import Mesh
+        from orphics_tpu.ops import sht
+        from orphics_tpu.parallel import sht as psht
+        lmax = 1023
+        rings = sht.gauss_legendre_rings(lmax)
+        mesh = Mesh(np.array(jax.devices()), ("rings",))
+        for nmaps in (1, 4):
+            shape = ((nmaps,) if nmaps > 1 else ()) + rings.shape
+            maps = jax.random.normal(jax.random.PRNGKey(5), shape,
+                                     jnp.float32)
+            ref = sht.map2alm(maps, rings, lmax)
+            scale = float(jnp.max(jnp.abs(ref)))
+            for prec in precisions:
+                f, mm = compile_at(
+                    prec, lambda x: psht.map2alm_dist(x, rings, lmax, mesh,
+                                                      axis="rings"),
+                    (maps,), f"map2alm_dist_lmax{lmax}_n{nmaps}")
+                err = float(jnp.max(jnp.abs(f(maps) - ref))) / scale
+                emit(layer="sht_dist", op="map2alm_dist", lmax=lmax,
+                     maps=nmaps, devices=mesh.size, precision=prec.name,
+                     err_over_max=err, matmuls=mm)
+
+    layers = {"fft": fft, "bin": binning, "lens": lens, "sht": sht_precision,
+              "sht_dist": sht_dist}
     for name in args.layers.split(","):
         run(name, layers[name])
     if failed:

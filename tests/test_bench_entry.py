@@ -72,6 +72,18 @@ def test_dryrun_multichip_on_given_devices():
         ge.dryrun_multichip(64)
 
 
+def test_dryrun_multichip_on_cpu_with_gpu_default(monkeypatch):
+    """A GPU host's default binning (the CUDA kernel) still runs a dry run
+    placed on CPU devices."""
+    from orphics_tpu.ops import binning
+    sys.path.insert(0, ROOT)
+    import __graft_entry__ as ge
+    monkeypatch.delenv("ORPHICS_TPU_BIN", raising=False)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert binning._default_strategy() == "triton"
+    ge.dryrun_multichip(2, devices=jax.devices("cpu"))
+
+
 def test_entry_step_is_finite():
     sys.path.insert(0, ROOT)
     import __graft_entry__ as ge

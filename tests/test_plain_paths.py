@@ -103,17 +103,24 @@ def test_fastcl_int_seed_is_a_key():
 # Binning strategies and the GPU kernel
 # ---------------------------------------------------------------------------
 
-def _interpreted(binner):
-    """Run the Triton kernel strategy in Pallas interpret mode (CPU)."""
-    if binner.strategy == "triton":
-        binner._kernel_sum = functools.partial(binner._kernel_sum,
-                                               interpret=True)
-    return binner
+# "triton" off CUDA takes its plain fallback; "triton-interpret" runs the
+# kernel itself in Pallas interpret mode
+BIN_CASES = ("triton-interpret",) + binning.STRATEGIES
 
 
-@pytest.mark.parametrize("strategy", binning.STRATEGIES)
+def _binner(cls, monkeypatch, *args, strategy):
+    if strategy != "triton-interpret":
+        return cls(*args, strategy=strategy)
+    monkeypatch.setattr(binning, "bin_sums",
+                        functools.partial(bin_sums, interpret=True))
+    b = cls(*args, strategy="triton")
+    b.sum = b._kernel_sum
+    return b
+
+
+@pytest.mark.parametrize("strategy", BIN_CASES)
 @pytest.mark.parametrize("kind", ["bin2d", "bin2d_weighted", "rfft"])
-def test_binning_strategies_vs_bincount(strategy, kind):
+def test_binning_strategies_vs_bincount(strategy, kind, monkeypatch):
     geom = _geom((48, 80))
     ml = geom.modlmap_np()
     edges = np.arange(100, 2600, 150.0)
@@ -122,12 +129,12 @@ def test_binning_strategies_vs_bincount(strategy, kind):
         img = rng.standard_normal((2,) + geom.shape)
         p_full = np.abs(np.fft.fft2(img)) ** 2
         p_half = np.abs(np.fft.rfft2(img)) ** 2
-        b = _interpreted(RfftBin2D(geom, edges, strategy=strategy))
+        b = _binner(RfftBin2D, monkeypatch, geom, edges, strategy=strategy)
         got = b.bin(jnp.asarray(p_half, jnp.float32))[1]
         ref = _np_binned(p_full, ml, edges)
     else:
         data = rng.exponential(size=(3,) + geom.shape)
-        b = _interpreted(Bin2D(ml, edges, strategy=strategy))
+        b = _binner(Bin2D, monkeypatch, ml, edges, strategy=strategy)
         if kind == "bin2d":
             got = b.bin(jnp.asarray(data, jnp.float32))[1]
             ref = _np_binned(data, ml, edges)
@@ -141,12 +148,13 @@ def test_binning_strategies_vs_bincount(strategy, kind):
                                rtol=2e-5)
 
 
-def test_rowcum_on_nonradial_map_takes_segment_path():
+@pytest.mark.parametrize("strategy", ["rowcum", "triton"])
+def test_nonradial_map_takes_segment_path(strategy):
     rng = np.random.default_rng(2)
     mod = rng.uniform(0, 10, (16, 24))
     edges = np.linspace(0, 10, 6)
-    b = Bin2D(mod, edges, strategy="rowcum")
-    assert not b._rowcum
+    b = Bin2D(mod, edges, strategy=strategy)
+    assert not b._rowcum and not b._use_rowcum
     data = rng.standard_normal((16, 24))
     np.testing.assert_allclose(np.asarray(b.bin(jnp.asarray(data))[1]),
                                _np_binned(data, mod, edges)[0], rtol=1e-6)
@@ -191,6 +199,18 @@ def test_default_strategy_by_platform(monkeypatch):
     assert binning._default_strategy() == binning._GPU_STRATEGY
     monkeypatch.setenv("ORPHICS_TPU_BIN", "segment")
     assert Bin2D(np.ones((4, 4)), [0.0, 2.0]).strategy == "segment"
+
+
+def test_triton_strategy_lowers_per_platform():
+    """One binner: the kernel in a CUDA lowering, the plain path in a CPU
+    one (a CPU-placed pipeline on a GPU host)."""
+    geom = _geom((48, 80))
+    b = RfftBin2D(geom, np.arange(100, 2600, 150.0), strategy="triton")
+    x = jax.ShapeDtypeStruct((2,) + geom.shape[:1] + (41,), jnp.float32)
+    cpu = jax.jit(b.sum).trace(x).lower(lowering_platforms=("cpu",))
+    cuda = jax.jit(b.sum).trace(x).lower(lowering_platforms=("cuda",))
+    assert "bin_sums" not in cpu.as_text()
+    assert "bin_sums" in cuda.as_text()
 
 
 def test_unknown_strategy_rejected(monkeypatch):
@@ -388,7 +408,7 @@ def test_smoke_phase_curved_tiny(smoke):
 
 def test_smoke_phase_multi_on_cpu_devices(smoke):
     out = smoke.phase_multi(ndev=4, nsims=4, n_fft=128, lmax=63)
-    assert out["fft2"] <= 1e-5 and out["map2alm"] <= 3e-3
+    assert out["fft2"] <= 1e-5 and out["map2alm"] <= 1.5e-4
 
 
 def test_smoke_check_raises(smoke):
